@@ -4,17 +4,27 @@
 
 Phases, each fatal on failure:
   1. device line (torch's name, nvidia-smi's name and power limit);
-  2. build the three hand kernels from src/repro_torch/kernels/*/csrc,
+  2. build the four hand kernels from src/repro_torch/kernels/*/csrc,
      one nvcc per source, all at once;
   3. hold each kernel against its plain PyTorch version on the card at the
-     enrichment feed's shapes (seeded numpy inputs) and time kernel, plain
-     version and the one PyTorch call computing the same function;
+     shapes of the feed and the read path (seeded numpy inputs) and time
+     kernel, plain version and the one PyTorch call computing the same
+     function (none for segment_topk);
   4. the feed: a fused Q1 -> Q4 -> Q6 plan over 20 x 6,720 tweets at the
      paper's reference cardinalities (scale 1.0), through FeedManager;
-     every kernel's launch counter must grow during this run;
+     the launch counters of its three kernels must grow during this run,
+     segment_topk's must not;
   5. cross-check the first 2 frames against a ComputingRunner on the CPU
      (plain versions): every output column equal;
-  6. a group_by("country") count/mean query over the store, against numpy.
+  6. a group_by("country") count/mean query over the store, against numpy;
+  7. the read path: a Q1 feed of 100 x 6,720 tweets into a store spilling
+     2,000-row segments, then benchmarks/fig_query.py's queries (pruned
+     scan, eager / batched / merged group-by with agg.topk, a top-16 by
+     country) each bit-equal to the CPU on the same snapshot, and queries
+     during a throttled feed with repair, compaction and rolling reference
+     updates, which must converge.  Every top-k must take the kernel.
+Each path (4-6, then 7) runs with the launch counts set to 0 just before
+it and read just after; the kernels line gives both paths' counts.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -27,6 +37,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -224,6 +235,69 @@ def check_segment_sum(dev, rng):
             "by_dtype": rows}
 
 
+TOPK_ROWS = 1 << 20          # the bucket of a batched scan over phase 7
+TOPK_HEAD = ("ties", 256, 16)  # phase 7(c)'s shape: group_by("country")
+
+
+def check_segment_topk(dev, rng):
+    """Bit-equal to the plain version at R = 2^20 rows, S in {128, 256,
+    2048}, k in {3, 16}, for dense ties (values -1..5) and few ties
+    (values in [0, 2^31)), 5 % of rows dropped (seg = S); plus the
+    group_by("safety_level") shape: 6 real groups of S = 128, and int64
+    values in [-2^40, 2^40), which rank clipped to [0, 2^31)."""
+    from repro_torch.kernels.segment_topk import kernel, ref
+    r = TOPK_ROWS
+    draws = {"ties": lambda: rng.integers(-1, 6, r).astype(np.int32),
+             "wide": lambda: rng.integers(0, 2**31, r).astype(np.int32),
+             "int64": lambda: rng.integers(-2**40, 2**40, r)}
+    cases = [(vn, s, s) for vn in ("ties", "wide") for s in (128, 256, 2048)]
+    cases += [("ties", 128, 6), ("int64", 256, 256)]
+    rows = {}
+    for vname, s, groups in cases:
+        vals = draws[vname]()
+        seg = rng.integers(0, groups, r).astype(np.int32)
+        seg[rng.random(r) < 0.05] = s                      # dropped
+        vt, st = t(vals, dev), t(seg, dev)
+        for k in (3, 16):
+            got = kernel.segment_topk_idx(vt, st, s, k)
+            want = ref.segment_topk_idx(vt, st, s, k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"segment_topk {vname} S={s} "
+                                     f"groups={groups} k={k}: {bad} "
+                                     "slots differ from the plain version")
+            err = float((got.long() - want.long()).abs().max())
+            ms = time_ms(lambda: kernel.segment_topk_idx(vt, st, s, k))
+            plain = time_ms(lambda: ref.segment_topk_idx(vt, st, s, k),
+                            reps=5)
+            b_ms, b_by = bound(r * (vals.itemsize + 4) + s * k * 4,
+                               float(r))
+            tag = f"{vname} S={s}" + (f" groups={groups}"
+                                      if groups != s else "") + f" k={k}"
+            log(f"kernel segment_topk[{tag}] R={r}: max_abs_err={err} "
+                f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
+                f"bound_ms={b_ms:.6f} ({b_by}) "
+                f"filled={int((got >= 0).sum())}")
+            rows[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    # no single PyTorch call computes a per-segment top-k; the stable sort
+    # of the composite key, the core of the plain version, for scale
+    comp = torch.randint(0, 2**40, (r,), device=dev)
+    sort_ms = time_ms(lambda: torch.sort(comp, stable=True))
+    log(f"segment_topk scale: torch.sort(int64 composite, stable=True) "
+        f"R={r}: {sort_ms:.4f} ms")
+    vname, s, k = TOPK_HEAD
+    return {"name": "segment_topk", "route": "cuda",
+            "source": ("src/repro_torch/kernels/segment_topk/csrc/"
+                       "segment_topk.cu"),
+            "replaces": "src/repro/kernels/segment_topk/kernel.py:108",
+            **rows[f"{vname} S={s} k={k}"],
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "stable_sort_ms": sort_ms, "by_case": rows}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the feed, the CPU cross-check, the query
 # ---------------------------------------------------------------------------
@@ -384,6 +458,305 @@ def check_query(feed, rows):
     return q_s, st
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the read path (fig_query's queries) at full size
+# ---------------------------------------------------------------------------
+
+READ_FRAMES = 100            # 672,000 tweets: 336 segments of 2,000 rows
+LIVE_FRAMES = 20
+SEGMENT_ROWS = 2000
+
+
+def q1_store_plan(adapter, name, spill_dir, batch=BATCH,
+                  segment_rows=SEGMENT_ROWS, refresh=None, compact=None):
+    """benchmarks/fig_query.py's q1_store_plan: Q1 into a spilling store."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.enrich import queries as Q
+    return (pipeline(adapter, name).parse(batch_size=batch)
+            .options(num_partitions=2, coalesce_rows=0, holder_capacity=16)
+            .enrich(Q.Q1)
+            .store(spill_dir=spill_dir, segment_rows=segment_rows,
+                   refresh=refresh, compact=compact, upsert=True))
+
+
+class RollingUpdater(threading.Thread):
+    """Upserts ``nkeys`` random existing safety_levels keys every
+    ``every_s`` until stopped (benchmarks/fig_repair.py's workload)."""
+
+    def __init__(self, table, nbase, every_s, nkeys, seed=5):
+        super().__init__(name="rolling-updater", daemon=True)
+        self.table, self.nbase = table, nbase
+        self.every_s, self.nkeys = every_s, nkeys
+        self.rng = np.random.default_rng(seed)
+        self.updates = 0
+        self._stop_evt = threading.Event()
+
+    def run(self):
+        while not self._stop_evt.wait(self.every_s):
+            keys = self.rng.choice(self.nbase, self.nkeys, replace=False)
+            self.table.upsert(keys.astype(np.int64),
+                              safety_level=self.rng.integers(
+                                  0, 5, self.nkeys).astype(np.int32))
+            self.updates += 1
+
+    def stop(self):
+        self._stop_evt.set()
+
+
+def assert_same(a, b, what):
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: columns {sorted(a)} != {sorted(b)}")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                not np.array_equal(x, y):
+            raise AssertionError(f"{what}: column {k} differs ({x.dtype}"
+                                 f"{x.shape} vs {y.dtype}{y.shape})")
+
+
+def on_card(storage):
+    return torch.device(storage.device).type == "cuda"
+
+
+class ReadPath:
+    """Runs each query on the store's device and, on the same snapshot,
+    on the CPU (plain versions), and holds the two bit for bit.  Keeps
+    the card runs' walls."""
+
+    def __init__(self, storage):
+        self.storage = storage
+        self.walls = {}
+
+    def run(self, name, q, snap, **kw):
+        res = q.execute(snapshot=snap, **kw)
+        if on_card(self.storage) and res.stats.agg_fallback_dispatches:
+            raise AssertionError(f"{name}: {res.stats.agg_fallback_dispatches}"
+                                 " aggregate dispatches took a plain version "
+                                 "on the store's device")
+        dev = self.storage.device
+        self.storage.device = torch.device("cpu")
+        try:
+            cpu = q.execute(snapshot=snap, **kw)
+        finally:
+            self.storage.device = dev
+        assert_same(res, cpu, f"{name} (device vs CPU)")
+        self.walls[name] = {"device_s": res.stats.wall_s,
+                            "cpu_s": cpu.stats.wall_s,
+                            "units": res.stats.units,
+                            "segments_pruned": res.stats.segments_pruned,
+                            "rows_matched": res.stats.rows_matched,
+                            "agg_invocations": res.stats.agg_invocations}
+        log(f"read: {name}: device {res.stats.wall_s * 1e3:.1f} ms, CPU "
+            f"{cpu.stats.wall_s * 1e3:.1f} ms; units {res.stats.units} "
+            f"(pruned {res.stats.segments_pruned}), rows matched "
+            f"{res.stats.rows_matched}, dispatches "
+            f"{res.stats.agg_invocations} (kernel "
+            f"{res.stats.agg_kernel_dispatches})")
+        return res
+
+
+    def profile(self, name, q, snap, **kw):
+        """One more run of ``q`` under torch.profiler: the device's busy
+        time against the query's wall."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            q.execute(snapshot=snap, **kw)
+            wall = time.perf_counter() - t0
+        dev_us = sum(getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+                     for ev in prof.key_averages())
+        busy = dev_us / 1e6 / wall
+        self.walls[name]["profiled_wall_ms"] = wall * 1e3
+        self.walls[name]["device_busy_ms"] = dev_us / 1e3
+        self.walls[name]["device_busy_share"] = busy
+        log(f"read: {name} profiled: device busy {dev_us / 1e3:.3f} ms of "
+            f"{wall * 1e3:.1f} ms wall = {busy:.4f}")
+
+
+def scan_topk(snap, key, value, payload, k):
+    """numpy oracle of group_by(key).agg(topk(value, k, payload)): the
+    live rows of the snapshot's units in scan order (fig_query.py's
+    naive_check), ranked by clipped value desc, then scan order."""
+    parts = {c: [] for c in (key, value, payload)}
+    for ps in snap.parts:
+        for u in ps.units:
+            if u.rows == 0:
+                continue
+            cols = u.read((key, value, payload, "id"))
+            live = ps.live_mask(cols["id"], u.base)
+            for c in parts:
+                parts[c].append(np.asarray(cols[c])[live])
+    kv, v, p = (np.concatenate(parts[c]) for c in (key, value, payload))
+    n = kv.shape[0]
+    order = np.lexsort((np.arange(n), -np.clip(v.astype(np.int64), 0, None),
+                        kv.astype(np.int64)))
+    sk = kv[order].astype(np.int64)
+    keys, starts = np.unique(sk, return_index=True)
+    rank = np.arange(n) - np.repeat(starts, np.diff(np.append(starts, n)))
+    keep = rank < k
+    top = np.full((keys.shape[0], k), -1, p.dtype)
+    top[np.searchsorted(keys, sk[keep]), rank[keep]] = p[order][keep]
+    return keys, top
+
+
+def read_path(dev, store, out_dir, frames=READ_FRAMES,
+              live_frames=LIVE_FRAMES, batch=BATCH,
+              segment_rows=SEGMENT_ROWS):
+    """fig_query's read path through the port's entry points: a Q1 feed
+    fills a spilling store, then (a) the pruned scan, (b) the merged read
+    eager / batched / after merge_now, (c) a top-16 by country against a
+    numpy scan, each bit-equal to the CPU on the same snapshot; (d)
+    queries during a throttled feed with repair, compaction and rolling
+    reference updates, then convergence.  Returns its measurements."""
+    import shutil
+    from repro_torch.core import (CompactionJob, CompactionSpec,
+                                  FeedManager, RepairSpec, StoreSnapshot,
+                                  SyntheticAdapter, agg, col)
+    spill = os.path.join(out_dir, "read_path")
+    shutil.rmtree(spill, ignore_errors=True)
+    mgr = FeedManager(store, device=dev)
+    total = frames * batch
+    t0 = time.perf_counter()
+    h = mgr.submit(q1_store_plan(
+        SyntheticAdapter(total=total, frame_size=batch, seed=19),
+        "read-fill", os.path.join(spill, "fill"), batch, segment_rows))
+    st = h.join(timeout=900)
+    if st.stored != total:
+        raise AssertionError(f"read fill stored {st.stored} of {total}")
+    h.storage.flush()
+    fill_s = time.perf_counter() - t0
+    segs = h.storage.segment_count
+    log(f"read: Q1 feed filled {total} rows in {fill_s:.1f} s "
+        f"({total / fill_s:,.0f} records/s), {segs} segments of "
+        f"{segment_rows} rows")
+    rp = ReadPath(h.storage)
+
+    # (a) fig_query.py:118-131: selective id range, pruning on and off
+    qa = (h.query().where(col("id") < total // 50)
+          .group_by("safety_level")
+          .agg(n=agg.count(), top=agg.topk("safety_level", 3)))
+    with StoreSnapshot(h.storage) as snap:
+        on = rp.run("a pruned", qa, snap, prune=True)
+        off = rp.run("a unpruned", qa, snap, prune=False)
+    assert_same(on, off, "(a) pruned vs unpruned")
+    if on.stats.segments_pruned == 0 or off.stats.segments_pruned:
+        raise AssertionError("(a) pruning did not prune")
+
+    # (b) fig_query.py:269-313: eager, batched, then merged
+    qb = (h.query().where(col("safety_level") >= 3)
+          .group_by("safety_level")
+          .agg(n=agg.count(), s=agg.sum("created_at"),
+               top=agg.topk("safety_level", 2, payload="id")))
+    with StoreSnapshot(h.storage) as snap:
+        eager = rp.run("b eager", qb, snap, batched=False)
+        bat = rp.run("b batched", qb, snap, batched=True)
+        if on_card(h.storage):
+            rp.profile("b batched", qb, snap, batched=True)
+    t0 = time.perf_counter()
+    job = CompactionJob(h.storage, CompactionSpec(
+        budget_rows_s=1e6, merge_fanin=8,
+        level_target_rows=8 * segment_rows))
+    job.merge_now(min_run=2)
+    merge_s = time.perf_counter() - t0
+    merged_segs = h.storage.segment_count
+    if merged_segs >= segs:
+        raise AssertionError("merge_now merged nothing")
+    log(f"read: merge_now {segs} -> {merged_segs} segments in "
+        f"{merge_s:.1f} s (levels {h.storage.level_histogram()})")
+    with StoreSnapshot(h.storage) as snap:
+        merged = rp.run("b merged", qb, snap, batched=True)
+    assert_same(eager, bat, "(b) eager vs batched")
+    assert_same(eager, merged, "(b) eager vs merged")
+
+    # (c) top-16 by country, at the envelope's k, against a numpy scan
+    qc = (h.query().group_by("country")
+          .agg(top=agg.topk("safety_level", 16, payload="id")))
+    with StoreSnapshot(h.storage) as snap:
+        rc = rp.run("c top16 by country", qc, snap)
+        if on_card(h.storage):
+            rp.profile("c top16 by country", qc, snap)
+        keys, top = scan_topk(snap, "country", "safety_level", "id", 16)
+    assert_same(rc, {"country": keys, "top": top}, "(c) vs numpy scan")
+    log(f"read: (c) {keys.shape[0]} groups equal the numpy scan")
+
+    # (d) fig_query.py:151-202: queries while a throttled feed ingests,
+    # repair re-enriches under rolling updates and compaction reclaims
+    table = store["safety_levels"]
+    nbase = len(table)
+    upd = RollingUpdater(table, nbase, 0.1, min(25, nbase))
+    live_total = live_frames * batch
+    h2 = mgr.submit(q1_store_plan(
+        SyntheticAdapter(total=live_total, frame_size=batch, seed=13,
+                         rate=20_000.0),
+        "read-live", os.path.join(spill, "live"), batch, segment_rows,
+        refresh=RepairSpec(budget_rows_s=20_000.0),
+        compact=CompactionSpec(budget_rows_s=100_000.0,
+                               min_dead_frac=0.2, interval_s=0.1)))
+    upd.start()
+    qd = (h2.query().where(col("id") < live_total // 50)
+          .group_by("safety_level")
+          .agg(n=agg.count(), top=agg.topk("safety_level", 3)))
+    # until every row is visible: the workers lag the throttled intake
+    lat, checks, matched, last_live = [], 0, 0, -1
+    deadline = time.monotonic() + 600
+    while ((h2.intake is not None and h2.intake.is_alive())
+           or last_live < live_total) and time.monotonic() < deadline:
+        with StoreSnapshot(h2.storage) as snap:
+            t0 = time.perf_counter()
+            r1 = qd.execute(snapshot=snap)
+            wall = time.perf_counter() - t0
+            r2 = qd.execute(prune=False, snapshot=snap)
+            live = snap.live_rows
+        assert_same(r1, r2, "(d) pruned vs unpruned")
+        if on_card(h2.storage) and r1.stats.agg_fallback_dispatches:
+            raise AssertionError("(d) a query took a plain version")
+        if live < last_live:
+            raise AssertionError("(d) live rows went backwards")
+        last_live = live
+        checks += 1
+        if r1.stats.rows_matched:        # the latency of a real query
+            matched += 1
+            lat.append(wall)
+        time.sleep(0.02)
+    upd.stop()
+    upd.join(timeout=10)
+    st2 = h2.join(timeout=600)
+    if st2.stored != live_total:
+        raise AssertionError(f"(d) stored {st2.stored} of {live_total}")
+    snap_t = table.snapshot()
+    a = snap_t.arrays
+    tkeys, tlvl = a["key"][:snap_t.size], a["safety_level"][:snap_t.size]
+    rows = h2.query().select("id", "country", "safety_level").execute()
+    at = np.clip(np.searchsorted(tkeys, rows["country"]), 0,
+                 len(tkeys) - 1)
+    want = np.where(tkeys[at] == rows["country"], tlvl[at], -1)
+    bad = int((rows["safety_level"] != want).sum())
+    if rows.rows != live_total or bad or checks == 0:
+        raise AssertionError(f"(d) {bad} of {rows.rows} stored rows differ "
+                             f"from the final table ({checks} checks)")
+    shutil.rmtree(spill, ignore_errors=True)
+    lat.sort()
+    live_res = {"checks": checks, "checks_with_rows": matched,
+                "updates": upd.updates,
+                "repaired_rows": st2.repaired_rows,
+                "compacted_rows": st2.compacted_rows,
+                "query_p50_ms": 1e3 * lat[len(lat) // 2] if lat else None,
+                "query_max_ms": 1e3 * lat[-1] if lat else None}
+    log(f"read: (d) {checks} pruned/unpruned checks during ingest "
+        f"({matched} with matching rows), "
+        f"{upd.updates} reference updates, repaired "
+        f"{st2.repaired_rows}, compacted {st2.compacted_rows}; all "
+        f"{rows.rows} rows equal the final table; pruned query p50 "
+        f"{live_res['query_p50_ms']} ms, max {live_res['query_max_ms']} "
+        "ms over the checks with matching rows")
+    return {"fill_s": fill_s, "segments": segs,
+            "segments_merged": merged_segs, "merge_s": merge_s,
+            "queries": rp.walls, "live": live_res,
+            "groups_c": int(keys.shape[0])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -417,23 +790,25 @@ def main() -> int:
     # phase 3
     rng = np.random.default_rng(2019)
     kernels = [check_sorted_probe(dev, rng), check_radius_join(dev, rng),
-               check_segment_sum(dev, rng)]
+               check_segment_sum(dev, rng), check_segment_topk(dev, rng)]
     # phase 4
     t0 = time.perf_counter()
     store = RefStore()
     Q.make_reference_tables(store, scale=1.0, seed=SEED_TABLES)
     log(f"tables: scale 1.0 built in {time.perf_counter() - t0:.1f} s")
     layers = layer_breakdown(dev, store)
+    # the feed path (phases 4-6) runs from counts of 0
     reset_launch_counts()
     feed, split = run_feed(dev, store)
     counts = launch_counts()
     inv, builds = split["invocations"], split["state_builds"]
     # per batch: Q1's probe, Q4's join; per Q6 state build: the income
-    # join and the two district group-bys
+    # join and the two district group-bys; the feed issues no top-k
     want = {"hash_probe": inv + builds, "spatial_join": inv,
-            "segment_reduce": 2 * builds}
+            "segment_reduce": 2 * builds, "segment_topk": 0}
     log(f"feed: kernel launches {counts} (expected {want})")
-    if counts != want or 0 in counts.values():
+    if counts != want or 0 in (counts["hash_probe"], counts["spatial_join"],
+                               counts["segment_reduce"]):
         raise AssertionError(f"launch counts {counts} != {want}")
     # phase 5
     rows = stored_rows(feed)
@@ -446,21 +821,42 @@ def main() -> int:
             != qst.agg_kernel_dispatches):
         raise AssertionError(f"query did not run the segment_sum kernel "
                              f"({after} after the feed's {counts})")
-    launches = {"sorted_probe": after["hash_probe"],
-                "radius_join": after["spatial_join"],
-                "segment_sum": after["segment_reduce"]}
-
+    # phase 7, the read path, from counts and path stats of 0: its top-k
+    # launches must all be the kernel path's, and the card must take no
+    # plain version (the CPU runs beside it record "reference")
+    from repro_torch.core.enrich import dispatch
+    reset_launch_counts()
+    dispatch.reset_path_stats()
+    read = read_path(dev, store, out_dir)
+    rcounts = launch_counts()
+    paths = dispatch.path_stats()
+    kernel_path = paths.get(("segment_topk", "kernel"), 0)
+    card_plain = paths.get(("segment_topk", "plain_on_card"), 0)
+    log(f"read: launches {rcounts}; segment_topk kernel-path dispatches "
+        f"{kernel_path}, plain-path dispatches on the card {card_plain}")
+    if (rcounts["segment_topk"] == 0 or card_plain
+            or kernel_path != rcounts["segment_topk"]):
+        raise AssertionError("the read path did not run the segment_topk "
+                             "kernel for every top-k")
+    if rcounts["segment_reduce"] == 0:
+        raise AssertionError("the read path did not run segment_sum")
+    names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
+             "segment_sum": "segment_reduce", "segment_topk": "segment_topk"}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        by_path = {"feed": after[names[k["name"]]],
+                   "read_path": rcounts[names[k["name"]]]}
+        k["launches_by_path"] = by_path
+        k["launches"] = by_path["feed"] + by_path["read_path"]
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     line = {"kernels": [{kk: k[kk] for kk in keys} for k in kernels]}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "feed": split, "layers": layers,
                    "cross_checked_rows": checked,
-                   "query_s": q_s}, fh, indent=1)
+                   "query_s": q_s, "read_path": read},
+                  fh, indent=1)
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

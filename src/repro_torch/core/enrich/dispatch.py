@@ -6,9 +6,10 @@ themselves are fast at scale.  This module is the one place that decides
 which body runs:
 
   * **Routing is by device.**  A CUDA tensor goes to the hand kernel
-    (kernels/hash_probe, kernels/spatial_join, kernels/segment_reduce),
-    which launches or raises.  A CPU or ``meta`` tensor (plan validation)
-    goes to the kernel's plain PyTorch version.  There is no mode switch
+    (kernels/hash_probe, kernels/spatial_join, kernels/segment_reduce,
+    kernels/segment_topk), which launches or raises.  A CPU or ``meta``
+    tensor (plan validation) goes to the kernel's plain PyTorch
+    version.  There is no mode switch
     and no row threshold: a batch of 512 keys on the card still runs the
     kernel.  The plain versions use the kernels' own arithmetic
     (d2 = dx*dx + dy*dy for the spatial join), so the card and the CPU
@@ -20,10 +21,11 @@ which body runs:
     in ``bucket_stats()`` (PyTorch runs eagerly, so the kernels take the
     unpadded rows; the bucket keeps the reference's accounting).
 
-``segment_topk`` has no kernel on the card yet (ROADMAP, Queue 2):
-inside its envelope a CUDA tensor raises ``NotImplementedError``; outside
-it (Q3's 50K-segment state build) every device takes the composite-key
-sort, as the reference does.
+``segment_topk`` takes its kernel inside the reference's envelope (at most
+2048 segments, k <= 16) for integer values of any width, which rank
+clipped to [0, 2^31) on both paths.  Outside it (Q3's 50K-segment state
+build, k > 16, float values) every device takes the composite-key sort;
+on the card that is recorded as the path "plain_on_card".
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.hash_probe import ops as hp_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
+from repro_torch.kernels.segment_topk import kernel as st_kernel
 from repro_torch.kernels.segment_topk import ops as st_ops
 from repro_torch.kernels.spatial_join import ops as sj_ops
 
@@ -48,10 +51,6 @@ Array = torch.Tensor
 class DispatchConfig:
     bucket_min: int = 512         # smallest probe bucket
     bucket_max: int = 1 << 22     # cap: beyond this, chunk upstream
-    # segment_topk kernel envelope (the reference's): at most this many
-    # segments and this k; outside it the composite-key sort runs
-    topk_max_segments: int = 2048
-    topk_max_k: int = 16
 
 
 _config = DispatchConfig()
@@ -59,7 +58,8 @@ _stats_lock = threading.Lock()              # lock-name: dispatch-stats
 _bucket_hits: Dict[Tuple[str, int], int] = {}   # guarded-by: _stats_lock
 # (op, path) execution-path counters for the segment_* aggregation ops:
 # "kernel" = the hand kernel on the card, "reference" = the plain version
-# (CPU/meta tensors, or segment_topk outside its envelope).  Callers that
+# on CPU/meta tensors, "plain_on_card" = the plain version on the card
+# (segment_topk outside its kernel's envelope).  Callers that
 # need a per-query view (QueryStats' kernel-vs-fallback report) use the
 # thread-local tape.
 _path_hits: Dict[Tuple[str, str], int] = {}     # guarded-by: _stats_lock
@@ -93,7 +93,7 @@ def _note(op: str, bucket: int) -> None:
 
 def path_stats() -> Dict[Tuple[str, str], int]:
     """(op, path) -> dispatch count for the segment_* aggregation ops;
-    path is "kernel" or "reference"."""
+    path is "kernel", "reference" or "plain_on_card"."""
     with _stats_lock:
         return dict(_path_hits)
 
@@ -205,22 +205,34 @@ def segment_topk(values: Array, seg: Array, payload: Array,
                  valid: Optional[Array] = None) -> Tuple[Array, Array]:
     """Per-segment top-k by ``values`` desc (ties: row asc), returning
     ((S, k) payload -1-filled, (S, k) values 0-filled).  Inside the kernel
-    envelope (S <= topk_max_segments, k <= topk_max_k, signed values of at
-    most 32 bits) a CUDA tensor goes to ``kernels/segment_topk``, which
-    raises until its kernel is ported; everything else takes the
+    envelope (1 <= S <= MAX_SEGMENTS, k <= MAX_K, integer values) a CUDA
+    tensor goes to ``kernels/segment_topk``, which picks winner ROW
+    indices; the payload and the unclipped values are gathered out here,
+    so any payload dtype rides along.  Everything else takes the
     composite-key sort."""
     r = values.shape[0]
-    in_envelope = (r > 0 and 1 <= num_segments <= _config.topk_max_segments
-                   and k <= _config.topk_max_k
-                   and values.dtype in (torch.int8, torch.int16,
-                                        torch.int32))
-    if in_envelope and on_cuda(values):
-        # raises NotImplementedError until the kernel is ported
-        st_ops.segment_topk_idx(values, seg, num_segments, k)
-    _note_path("segment_topk", "reference")
-    from repro_torch.core.enrich import ops
-    return ops._segment_topk_ref(values, seg, payload, num_segments, k,
-                                 valid)
+    on_card = on_cuda(values)
+    in_envelope = (r > 0 and 1 <= num_segments <= st_kernel.MAX_SEGMENTS
+                   and k <= st_kernel.MAX_K
+                   and not (values.dtype.is_floating_point
+                            or values.dtype.is_complex))
+    if not (in_envelope and on_card):
+        _note_path("segment_topk",
+                   "plain_on_card" if on_card else "reference")
+        from repro_torch.core.enrich import ops
+        return ops._segment_topk_ref(values, seg, payload, num_segments, k,
+                                     valid)
+    _note_path("segment_topk", "kernel")
+    _note("segment_topk", bucket_rows(r))
+    segi = seg.to(torch.int32)
+    if valid is not None:
+        # invalid rows route to the dropped overflow segment
+        segi = torch.where(valid, segi, num_segments)
+    idx = st_ops.segment_topk_idx(values, segi, num_segments, k)  # (S, k)
+    found = idx >= 0
+    safe = torch.clamp(idx, min=0).long()
+    return (torch.where(found, payload[safe], -1),
+            torch.where(found, values[safe], 0))
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ Four properties, in execution order:
     enrichment dispatch layer (core/enrich/dispatch.py): ``count`` and
     ``sum`` ride ``dispatch.segment_sum`` (the CUDA segment-sum kernel on
     the card, int32 to float64), ``topk`` rides ``dispatch.segment_topk``
-    (no card kernel yet: it raises inside its envelope).  Group keys map
+    (the CUDA per-segment top-k kernel on the card).  Group keys map
     to dense segment ids against an incrementally-grown sorted
     dictionary; the segment count is padded to a power-of-two bucket,
     exactly like the write-side operators.  Integer sums are widened to
@@ -445,9 +445,9 @@ class _GroupedAggregator:
                         f"topk column {a.column!r} holds values above "
                         "int32 range; segment_topk ranks within "
                         "[0, 2^31) (negatives rank as 0)")
-                # keep the native width: dispatch routes 64-bit (and
-                # unsigned) dtypes to the reference path, never through
-                # an int32 wrap
+                # keep the native width: the kernel's wrapper clips
+                # 64-bit values to [0, 2^31) as the plain version does,
+                # never through an int32 wrap
                 v = v.astype(np.int32) if v.dtype == np.bool_ else v
                 pay = np.asarray(cols[a.payload][mask])
                 kidx = self._put(np.arange(nb, dtype=np.int64))

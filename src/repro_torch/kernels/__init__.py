@@ -151,8 +151,9 @@ def all_kernels() -> List[CudaKernel]:
     package must not import the kernel wrappers)."""
     from repro_torch.kernels.hash_probe import kernel as hp
     from repro_torch.kernels.segment_reduce import kernel as sr
+    from repro_torch.kernels.segment_topk import kernel as st
     from repro_torch.kernels.spatial_join import kernel as sj
-    return [hp.KERNEL, sj.KERNEL, sr.KERNEL]
+    return [hp.KERNEL, sj.KERNEL, sr.KERNEL, st.KERNEL]
 
 
 _build_all_lock = threading.Lock()   # lock-name: kernel-build-all blocking-ok

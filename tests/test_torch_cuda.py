@@ -16,6 +16,8 @@ from repro_torch.kernels.hash_probe import kernel as hp_kernel
 from repro_torch.kernels.hash_probe import ref as hp_ref
 from repro_torch.kernels.segment_reduce import kernel as sr_kernel
 from repro_torch.kernels.segment_reduce import ref as sr_ref
+from repro_torch.kernels.segment_topk import kernel as st_kernel
+from repro_torch.kernels.segment_topk import ref as st_ref
 from repro_torch.kernels.spatial_join import kernel as sj_kernel
 from repro_torch.kernels.spatial_join import ref as sj_ref
 
@@ -88,10 +90,46 @@ def test_segment_sum_kernel_matches_plain(card, dtype):
         assert torch.equal(got, want)
 
 
+def _topk_case(name, rng):
+    """(values, seg, S) for one segment_topk edge case."""
+    r = 20_000
+    if name == "one_segment":            # every row in one segment
+        return (rng.integers(-3, 9, r).astype(np.int32),
+                np.zeros(r, np.int32), 1)
+    if name == "all_equal":              # ranks decided by the row alone
+        return (np.full(r, 4, np.int32),
+                rng.integers(0, 128, r).astype(np.int32), 128)
+    if name == "negatives":              # every value ranks as 0
+        return (rng.integers(-50, 0, r).astype(np.int32),
+                rng.integers(0, 128, r).astype(np.int32), 128)
+    if name == "empty_and_dropped":      # empty segments, dropped rows
+        seg = rng.integers(-2, 2050, r).astype(np.int32)
+        seg[(seg >= 100) & (seg < 200)] = 2048
+        return (rng.integers(-1, 6, r).astype(np.int32), seg, 2048)
+    if name == "int64":                  # negatives and values past 2^31
+        return (rng.integers(-2**40, 2**40, r),
+                rng.integers(0, 128, r).astype(np.int32), 128)
+    return (rng.integers(0, 2**31 - 1, r).astype(np.int32),  # "wide"
+            rng.integers(0, 2048, r).astype(np.int32), 2048)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("case", ["one_segment", "all_equal", "negatives",
+                                  "empty_and_dropped", "wide", "int64"])
+def test_segment_topk_kernel_equals_plain(card, case, k):
+    rng = np.random.default_rng(k)
+    vals, seg, s = _topk_case(case, rng)
+    v, g = on(vals, card), on(seg, card)
+    got = st_kernel.segment_topk_idx(v, g, s, k)
+    want = st_ref.segment_topk_idx(v, g, s, k)
+    assert got.dtype == torch.int32 and got.shape == (s, k)
+    assert torch.equal(got, want)
+
+
 def test_routing_by_device_on_card(card):
     """CUDA tensors reach the kernels (launch counters grow); segment_topk
-    inside its envelope raises until its kernel is ported; 64-bit sums
-    take the kernel path."""
+    inside its envelope takes its kernel, for 64-bit values too; 64-bit
+    sums take the kernel path."""
     from repro_torch.core.enrich import dispatch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
@@ -103,9 +141,33 @@ def test_routing_by_device_on_card(card):
     keys = torch.arange(512, dtype=torch.int64, device=card)
     dispatch.sorted_join(keys, keys)          # below any row threshold
     assert launch_counts() == {"hash_probe": 1, "spatial_join": 0,
-                               "segment_reduce": 1}
-    with pytest.raises(NotImplementedError, match="segment_topk"):
-        dispatch.segment_topk(seg, seg, seg, 7, 2)
+                               "segment_reduce": 1, "segment_topk": 0}
+    ids = torch.arange(600, dtype=torch.int64, device=card) * 10
+    dispatch.path_tape_start()
+    pay, val = dispatch.segment_topk(seg - 2, seg, ids, 7, 2)
+    assert dispatch.path_tape_stop() == {("segment_topk", "kernel"): 1}
+    assert launch_counts()["segment_topk"] == 1
+    want = dispatch.segment_topk((seg - 2).cpu(), seg.cpu(), ids.cpu(), 7,
+                                 2)
+    assert torch.equal(pay.cpu(), want[0]) and torch.equal(val.cpu(),
+                                                           want[1])
+    # int64 values rank clipped to [0, 2^31), as in the plain version
+    big = (seg.long() - 3) << 33
+    dispatch.path_tape_start()
+    pay, val = dispatch.segment_topk(big, seg, ids, 7, 2)
+    assert dispatch.path_tape_stop() == {("segment_topk", "kernel"): 1}
+    assert launch_counts()["segment_topk"] == 2
+    want = dispatch.segment_topk(big.cpu(), seg.cpu(), ids.cpu(), 7, 2)
+    assert torch.equal(pay.cpu(), want[0]) and torch.equal(val.cpu(),
+                                                           want[1])
+    # outside the envelope (float values, k > 16) the composite sort runs
+    # on the card and is recorded as such
+    dispatch.path_tape_start()
+    dispatch.segment_topk(seg.float(), seg, seg, 7, 2)
+    dispatch.segment_topk(seg, seg, seg, 7, 17)
+    assert dispatch.path_tape_stop() == {("segment_topk",
+                                          "plain_on_card"): 2}
+    assert launch_counts()["segment_topk"] == 2
 
 
 def test_small_feed_on_card_equals_cpu(card):
@@ -132,12 +194,24 @@ def test_small_feed_on_card_equals_cpu(card):
         res = (feed.query().group_by("country")
                .agg(n=agg.count(), inc=agg.mean("area_avg_income"))
                .execute())
-        return {k: v[order] for k, v in rows.items()}, res
+        return {k: v[order] for k, v in rows.items()}, res, feed
 
-    g_rows, g_res = run("cuda")
-    c_rows, c_res = run("cpu")
+    g_rows, g_res, g_feed = run("cuda")
+    c_rows, c_res, _ = run("cpu")
     for k in c_rows:
         assert g_rows[k].dtype == c_rows[k].dtype
         np.testing.assert_array_equal(g_rows[k], c_rows[k], err_msg=k)
     np.testing.assert_array_equal(g_res["n"], c_res["n"])
     np.testing.assert_allclose(g_res["inc"], c_res["inc"], rtol=1e-12)
+    # top-k ties break by scan order, which follows the order the two
+    # workers' batches reached the store: compare on one snapshot
+    q = (g_feed.query().group_by("country")
+         .agg(top=agg.topk("safety_level", 3, payload="id")))
+    storage = g_feed.storage
+    with storage.snapshot() as snap:
+        on_card = q.execute(snapshot=snap)
+        storage.device = torch.device("cpu")
+        on_cpu = q.execute(snapshot=snap)
+    assert on_card.stats.agg_kernel_dispatches > 0
+    assert on_cpu.stats.agg_kernel_dispatches == 0
+    np.testing.assert_array_equal(on_card["top"], on_cpu["top"])

@@ -26,6 +26,7 @@ from repro_torch.kernels.hash_probe import kernel as t_hp_kernel
 from repro_torch.kernels.hash_probe import ops as t_hp_ops
 from repro_torch.kernels.segment_reduce import kernel as t_sr_kernel
 from repro_torch.kernels.segment_reduce import ops as t_sr_ops
+from repro_torch.kernels.segment_topk import kernel as t_st_kernel
 from repro_torch.kernels.segment_topk import ops as t_st_ops
 from repro_torch.kernels.spatial_join import kernel as t_sj_kernel
 from repro_torch.kernels.spatial_join import ops as t_sj_ops
@@ -211,14 +212,28 @@ def test_radius_join_tiny_reference_pads_slots():
 
 
 # ---------------------------------------------------------------------------
-# segment_topk (plain version only; its kernel is the next slice)
+# segment_topk
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("r,s,k", [(64, 200, 4), (300, 12, 3), (512, 1, 1),
-                                   (1000, 40, 5)])
-def test_segment_topk_plain_matches_ref(r, s, k):
+_TOPK_SHAPES = [(64, 200, 4), (300, 12, 3), (512, 1, 1), (1000, 40, 5),
+                (5000, 6, 16), (4000, 2048, 16)]
+_TOPK_DRAWS = {
+    "mixed": lambda rng, r: rng.integers(-5, 50, r),     # ties, negatives
+    "ties": lambda rng, r: rng.integers(-1, 6, r),       # safety levels
+    "negatives": lambda rng, r: rng.integers(-9, 0, r),  # rank by row only
+    "wide": lambda rng, r: rng.integers(0, 2**31, r)}    # few ties
+
+
+@pytest.mark.parametrize("r,s,k,draw", [
+    pytest.param(r, s, k, "mixed", id=f"{r}-{s}-{k}")
+    for r, s, k in _TOPK_SHAPES[:4]] + [
+    pytest.param(r, s, k, d, id=f"{d}-{r}-{s}-{k}")
+    for d in ("ties", "negatives", "wide") for r, s, k in _TOPK_SHAPES])
+def test_segment_topk_plain_matches_ref(r, s, k, draw):
+    """The port's plain version selects the reference's stable
+    composite-sort order, with dropped and empty segments."""
     rng = np.random.default_rng(r * s + k)
-    vals = rng.integers(-5, 50, r).astype(np.int32)   # ties and negatives
+    vals = _TOPK_DRAWS[draw](rng, r).astype(np.int32)
     seg = rng.integers(-1, s + 1, r).astype(np.int32)  # out-of-range too
     got = t_st_ops.segment_topk_idx(t(vals), t(seg), s, k)
     want = st_ref.segment_topk_idx(jnp.asarray(vals), jnp.asarray(seg), s,
@@ -250,9 +265,15 @@ def test_plain_versions_run_on_meta_tensors():
                              torch.empty(13, dtype=torch.int32, device=m),
                              4)
     assert (s.shape, s.dtype) == ((4,), torch.int64)
+    i = t_st_ops.segment_topk_idx(torch.empty(13, dtype=torch.int32,
+                                              device=m),
+                                  torch.empty(13, dtype=torch.int32,
+                                              device=m), 4, 3)
+    assert (i.shape, i.dtype) == ((4, 3), torch.int32)
 
 
-@pytest.mark.parametrize("mod", [t_hp_kernel, t_sj_kernel, t_sr_kernel])
+@pytest.mark.parametrize("mod", [t_hp_kernel, t_sj_kernel, t_sr_kernel,
+                                 t_st_kernel])
 def test_c_entry_points_match_ctypes_signatures(mod):
     """Each exported C function takes exactly the arguments its ctypes
     binding passes (a wrong count would only surface on the card)."""
@@ -283,3 +304,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     f = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):
         t_sj_kernel.radius_join(f, f, f, f, 1.0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_st_kernel.segment_topk_idx(x.int(), x.int(), 2, 3)
