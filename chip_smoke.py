@@ -4,16 +4,18 @@
 
 Phases, each fatal on failure:
   1. device line (torch's name, nvidia-smi's name and power limit);
-  2. build the four hand kernels from src/repro_torch/kernels/*/csrc,
-     one nvcc per source, all at once;
+  2. build the five hand kernels from src/repro_torch/kernels/*/csrc
+     (hash_probe, spatial_join, segment_reduce, segment_topk,
+     flash_attention), one nvcc per source, all at once;
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the feed and the read path (seeded numpy inputs) and time
+     shapes of the feed, the read path and serving (seeded inputs) and time
      kernel, plain version and the one PyTorch call computing the same
-     function (none for segment_topk);
+     function (none for segment_topk; scaled_dot_product_attention for
+     flash_attention);
   4. the feed: a fused Q1 -> Q4 -> Q6 plan over 20 x 6,720 tweets at the
      paper's reference cardinalities (scale 1.0), through FeedManager;
      the launch counters of its three kernels must grow during this run,
-     segment_topk's must not;
+     segment_topk's and flash_attention's must not;
   5. cross-check the first 2 frames against a ComputingRunner on the CPU
      (plain versions): every output column equal;
   6. a group_by("country") count/mean query over the store, against numpy;
@@ -22,9 +24,19 @@ Phases, each fatal on failure:
      scan, eager / batched / merged group-by with agg.topk, a top-16 by
      country) each bit-equal to the CPU on the same snapshot, and queries
      during a throttled feed with repair, compaction and rolling reference
-     updates, which must converge.  Every top-k must take the kernel.
-Each path (4-6, then 7) runs with the launch counts set to 0 just before
-it and read just after; the kernels line gives both paths' counts.
+     updates, which must converge.  Every top-k must take the kernel;
+  8. LM serving: deepseek-coder-33b at full width cut to 4 of 62 layers,
+     bf16 parameters from a seed, 12 requests of 256-1,536 prompt tokens
+     and 32 new tokens each through ServingEngine on 4 slots; every
+     prefill and first-token attention must take the flash kernel (2 x
+     layers launches per admission, no "plain_on_card" attention); one
+     prefill, apply and decode step profiled; each layer's q, k, v of a
+     1,536-token prefill held kernel against plain version; prompts of
+     32, 40 and 200 tokens teacher-forced on the CPU from the same
+     weights, logits held to the card's.
+Each path (4-6, 7, 8) runs with the launch counts set to 0 just before it
+and read just after; the kernels line gives each kernel's launches on the
+three paths (feed, read_path, serve) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -91,6 +103,29 @@ def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_S):
 
 def t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def kernel_device_ms(prof, name_part: str = "") -> float:
+    """Device time in ms of the kernels a torch.profiler run saw (only
+    those whose name contains ``name_part``).  Only the kernel events
+    count: an operator's self device time is its kernels' time again, so
+    summing every event would count each kernel PyTorch launched twice
+    (kernels launched through ctypes have no operator)."""
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and name_part in ev.key) / 1e3
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler; (profile, wall ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +333,93 @@ def check_segment_topk(dev, rng):
             "stable_sort_ms": sort_ms, "by_case": rows}
 
 
+# (B, S, T, H, Kv, D, causal, dtype): G = H / Kv in {1, 4, 7}, D in {64,
+# 112, 128} (72 takes the CUDA-core body in bf16), S off the 64- and
+# 32-row tiles, causal S < T (top-left), non-causal S < T
+FLASH_CASES = [
+    (1, 1536, 1536, 56, 8, 128, True, "bfloat16"),   # the serving prefill
+    (2, 300, 300, 8, 8, 64, True, "bfloat16"),
+    (1, 333, 333, 16, 4, 112, True, "bfloat16"),
+    (1, 100, 300, 8, 2, 64, True, "bfloat16"),
+    (1, 200, 520, 14, 2, 128, False, "bfloat16"),
+    (1, 130, 130, 8, 2, 72, True, "bfloat16"),
+    (2, 300, 300, 8, 8, 64, True, "float32"),
+    (1, 333, 333, 16, 4, 112, True, "float32"),
+    (1, 1000, 1000, 56, 8, 128, True, "float32"),
+    (1, 100, 300, 8, 2, 64, True, "float32"),
+    (1, 200, 520, 14, 2, 128, False, "float32"),
+]
+# |kernel - plain| <= tol * (1 + |plain|): bf16 output rounding (2^-9) and
+# p rounded before (kernel) or after (plain) normalisation; float32
+# summation order and the running max (test_kernels.py's tolerances)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# timed: the serving path's prefill, and a longer causal prompt
+FLASH_TIMED = [(1, 1536, 56, 8, 128), (1, 4096, 56, 8, 128)]
+PEAK_BF16_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+
+
+def check_flash_attention(dev, rng):
+    """The kernel against its plain version on the card in every case of
+    FLASH_CASES, then timed (kernel, plain version, PyTorch's
+    scaled_dot_product_attention) at FLASH_TIMED, causal bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    err = 0.0
+    for b, s, t_, h, kv, d, causal, dt in FLASH_CASES:
+        tdt = getattr(torch, dt)
+        q = t(rng.normal(size=(b, s, h, d)).astype(np.float32), dev).to(tdt)
+        k = t(rng.normal(size=(b, t_, kv, d)).astype(np.float32), dev).to(tdt)
+        v = t(rng.normal(size=(b, t_, kv, d)).astype(np.float32), dev).to(tdt)
+        got = kernel.flash_attention(q, k, v, causal)
+        want = ref.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise AssertionError(f"flash_attention returned {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        diff = (got.float() - want.float()).abs()
+        e = float(diff.max())
+        lim = FLASH_TOL[dt] * (1 + want.float().abs())
+        if not bool(torch.isfinite(got.float()).all()) or \
+                bool((diff > lim).any()):
+            raise AssertionError(
+                f"flash_attention B={b} S={s} T={t_} H={h} Kv={kv} D={d} "
+                f"causal={causal} {dt}: max |kernel - plain| {e} beyond "
+                f"{FLASH_TOL[dt]} * (1 + |plain|)")
+        err = max(err, e)
+        log(f"kernel flash_attention[B={b} S={s} T={t_} H={h} Kv={kv} "
+            f"D={d} causal={causal} {dt}]: max_abs_err={e:.3g} "
+            f"(tol {FLASH_TOL[dt]})")
+    rows = {}
+    for b, s, h, kv, d in FLASH_TIMED:
+        q = t(rng.normal(size=(b, s, h, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        k = t(rng.normal(size=(b, s, kv, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        v = t(rng.normal(size=(b, s, kv, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        ms = time_ms(lambda: kernel.flash_attention(q, k, v, True))
+        plain = time_ms(lambda: ref.flash_attention(q, k, v, True), reps=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        # causal: half of the 4 B H S T D products; q, k, v, o once each
+        flops = 2.0 * b * h * s * s * d
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
+        log(f"kernel flash_attention[B={b} S=T={s} H={h} Kv={kv} D={d} "
+            f"causal bf16]: ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (scaled_dot_product_attention) "
+            f"bound_ms={b_ms:.6f} ({b_by}) "
+            f"achieved={flops / ms / 1e9:.1f} TFLOP/s")
+        rows[f"S={s}"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                          "bound_ms": b_ms, "bound_by": b_by}
+    return {"name": "flash_attention", "route": "cuda",
+            "source": ("src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:121",
+            "max_abs_err": err, **rows["S=1536"], "by_shape": rows}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the feed, the CPU cross-check, the query
 # ---------------------------------------------------------------------------
@@ -337,22 +459,13 @@ def layer_breakdown(dev, store, nbatch=4):
     ops.RECT_CHUNK_CUDA = big
     runner = ComputingRunner(spec, store, device=dev)
     runner.run(frames[0])
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for f in frames:
-            runner.run(f)
-        wall = time.perf_counter() - t0
-    dev_us = 0.0
-    for ev in prof.key_averages():
-        dev_us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-    busy = dev_us / 1e6 / wall
-    log(f"layers (1 thread, profiled): device busy {dev_us / 1e3:.2f} ms "
-        f"of {wall * 1e3:.2f} ms wall = {busy:.4f}")
+    prof, wall_ms = profiled(lambda: [runner.run(f) for f in frames])
+    dev_ms = kernel_device_ms(prof)
+    busy = dev_ms / wall_ms
+    log(f"layers (1 thread, profiled): device busy {dev_ms:.2f} ms "
+        f"of {wall_ms:.2f} ms wall = {busy:.4f}")
     return {"by_tile": {str(k): v for k, v in out.items()},
-            "profiled_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": dev_ms,
             "device_busy_share": busy}
 
 
@@ -558,21 +671,14 @@ class ReadPath:
     def profile(self, name, q, snap, **kw):
         """One more run of ``q`` under torch.profiler: the device's busy
         time against the query's wall."""
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            q.execute(snapshot=snap, **kw)
-            wall = time.perf_counter() - t0
-        dev_us = sum(getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-                     for ev in prof.key_averages())
-        busy = dev_us / 1e6 / wall
-        self.walls[name]["profiled_wall_ms"] = wall * 1e3
-        self.walls[name]["device_busy_ms"] = dev_us / 1e3
+        prof, wall_ms = profiled(lambda: q.execute(snapshot=snap, **kw))
+        dev_ms = kernel_device_ms(prof)
+        busy = dev_ms / wall_ms
+        self.walls[name]["profiled_wall_ms"] = wall_ms
+        self.walls[name]["device_busy_ms"] = dev_ms
         self.walls[name]["device_busy_share"] = busy
-        log(f"read: {name} profiled: device busy {dev_us / 1e3:.3f} ms of "
-            f"{wall * 1e3:.1f} ms wall = {busy:.4f}")
+        log(f"read: {name} profiled: device busy {dev_ms:.3f} ms of "
+            f"{wall_ms:.1f} ms wall = {busy:.4f}")
 
 
 def scan_topk(snap, key, value, payload, k):
@@ -757,6 +863,306 @@ def read_path(dev, store, out_dir, frames=READ_FRAMES,
             "groups_c": int(keys.shape[0])}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM serving of deepseek-coder-33b at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "deepseek-coder-33b"
+SERVE_LAYERS = 4             # of 62: depth is the only cut (5.2 GB of bf16)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BUCKET = 4, 2048, 16
+SERVE_REQUESTS, SERVE_NEW = 12, 32
+SERVE_PROMPT_LEN = (256, 1536)
+SERVE_SEED = 0
+# 200 tokens: four 64-key tiles, so the online softmax rescales and the
+# kernel skips causal tiles inside the model's cross-check
+CHECK_PROMPTS, CHECK_STEPS = (32, 40, 200), 8
+# Card against CPU, in units of the CPU logits' std at each step.  This
+# random-init model's attention is near one-hot (scores have std ~339 under
+# the init rule), so a rounding-level difference flips some heads and the
+# two devices' logits spread although both are right.
+# scripts/serve_logit_spread.py measures that spread on the card at this
+# configuration (3 trials of CHECK_PROMPTS; NVIDIA H100 80GB HBM3, 700 W):
+# sound, the worst max|d|/std is 2.9736, rms/std 0.7398, greedy gap/std
+# 3.0868; with the query heads in the wrong GQA order, each faulty trial's
+# largest readings are at least 5.8496, 1.3787 and 5.3047.  The limits lie
+# between the two.
+SERVE_TOL = 4.2              # max |d logit| / std, and the greedy gap
+SERVE_RMS_TOL = 1.0          # rms(d logit) / std
+
+
+def serve_requests(cfg):
+    """12 prompts of 256-1,536 tokens from a seeded numpy generator."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    lo, hi = SERVE_PROMPT_LEN
+    return [Request(rng.integers(16, cfg.vocab_size,
+                                 int(rng.integers(lo, hi + 1))).tolist(),
+                    max_new_tokens=SERVE_NEW, stop_at_eos=False)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def serve_warmup(cfg, params, dev):
+    """One short prefill, apply and decode step: the first cuBLAS calls
+    of each shape, outside the measured run."""
+    from repro_torch.models import api
+    tok = torch.full((1, 16), 17, dtype=torch.int32, device=dev)
+    cache, logits = api.prefill(cfg, params, tok)
+    api.apply(cfg, params, {"tokens": tok})
+    api.decode_step(cfg, params, api.pad_cache(cfg, cache, 32),
+                    logits.argmax(-1, keepdim=True).int())
+    torch.cuda.synchronize()
+
+
+def serve_path(cfg, params, dev):
+    """The continuous-batching engine over SERVE_REQUESTS requests."""
+    from repro_torch.serve import ServingEngine
+    eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, prompt_bucket=SERVE_BUCKET,
+                        device=dev)
+    reqs = [eng.submit(r) for r in serve_requests(cfg)]
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.tokens) != SERVE_NEW
+            or not all(0 <= x < cfg.vocab_size for x in r.tokens)
+            for r in reqs):
+        raise AssertionError("serve: a request did not get its "
+                             f"{SERVE_NEW} tokens")
+    new = sum(len(r.tokens) for r in reqs)
+    prompt = sum(len(r.prompt) for r in reqs)
+    res = {"requests": len(done), "prompt_tokens": prompt,
+           "new_tokens": new, "wall_s": wall, "prefills": eng.prefills,
+           "decode_steps": eng.decode_steps,
+           "prefill_ms_per_request": eng.prefill_s / eng.prefills * 1e3,
+           "decode_ms_per_step": eng.decode_s / eng.decode_steps * 1e3,
+           "new_tokens_per_s": new / wall,
+           "prompt_and_new_tokens_per_s": (prompt + new) / wall}
+    log(f"serve: {len(done)} requests ({prompt} prompt tokens, {new} new) "
+        f"in {wall:.3f} s on {SERVE_SLOTS} slots: "
+        f"{res['new_tokens_per_s']:.1f} new tokens/s; prefill "
+        f"{res['prefill_ms_per_request']:.2f} ms per request (prefill + "
+        f"first-token apply), decode {res['decode_ms_per_step']:.2f} ms per "
+        f"step over {eng.decode_steps} steps")
+    return res
+
+
+def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
+    """Under torch.profiler: one prefill of the longest prompt and one
+    first-token apply of it (the flash kernel's device time against all
+    kernels' and the wall), and one decode step of all slots over
+    n-token caches (device busy share)."""
+    from repro_torch.models import api
+    tok = torch.randint(16, cfg.vocab_size, (1, n), dtype=torch.int32,
+                        device=dev)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+             for k, s in api.cache_specs(cfg, SERVE_SLOTS,
+                                         SERVE_MAX_LEN)[0].items()}
+    step = torch.full((SERVE_SLOTS, 1), 17, dtype=torch.int32, device=dev)
+    runs = {"prefill": lambda: api.prefill(cfg, params, tok),
+            "apply": lambda: api.apply(cfg, params, {"tokens": tok})}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        prof, wall_ms = profiled(fn)
+        dev_ms, flash_ms = kernel_device_ms(prof), kernel_device_ms(
+            prof, "flash_")
+        out[name] = {"tokens": n, "wall_ms": wall_ms, "device_ms": dev_ms,
+                     "flash_ms": flash_ms,
+                     "flash_share_of_device": flash_ms / dev_ms,
+                     "device_busy_share": dev_ms / wall_ms}
+        log(f"serve: {name} of {n} tokens profiled: flash kernel "
+            f"{flash_ms:.3f} ms of {dev_ms:.3f} ms device time (share "
+            f"{flash_ms / dev_ms:.4f}), wall {wall_ms:.2f} ms, device busy "
+            f"{dev_ms / wall_ms:.4f}")
+
+    def decode():
+        cache["len"].fill_(n)
+        api.decode_step(cfg, params, cache, step)
+    decode()
+    torch.cuda.synchronize()
+    prof, wall_ms = profiled(decode)
+    dev_ms = kernel_device_ms(prof)
+    out["decode_step"] = {"slots": SERVE_SLOTS, "cache_len": n,
+                          "wall_ms": wall_ms, "device_ms": dev_ms,
+                          "device_busy_share": dev_ms / wall_ms}
+    log(f"serve: decode step of {SERVE_SLOTS} slots at length {n} "
+        f"profiled: device {dev_ms:.3f} ms of {wall_ms:.2f} ms wall, "
+        f"device busy {dev_ms / wall_ms:.4f}")
+    return out
+
+
+# This model's attention scores have a std of hundreds, so most rows'
+# softmax is one-hot, but where a few keys' scores nearly tie, p spreads
+# over values of either sign and the output cancels: rounding each p_j to
+# bf16 (2^-9 of p_j, before or after normalising) then errs by up to
+# 2^-9 * sum_j p_j |v_jd|, far beyond tol * (1 + |o_d|).  P_REL allows
+# twice that.
+P_REL = 2.0 ** -8
+
+
+def attention_error_bound(q, k, v, causal, outs, tol):
+    """Each output of ``outs`` (B = 1) against a float64 oracle of the same
+    bf16 inputs, per element: |out - o| <= tol * (1 + |o|) + P_REL *
+    (p @ |v|).  Returns per output: max |out - o|, the elements beyond
+    tol * (1 + |o|) alone, and the largest |out - o| / bound (<= 1
+    holds)."""
+    _, s, h, d = q.shape
+    t_, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    keep = (torch.arange(s, device=q.device)[:, None]
+            >= torch.arange(t_, device=q.device)[None]) if causal else None
+    res = {name: {"max_err": 0.0, "beyond_tol": 0, "ratio": 0.0}
+           for name in outs}
+    for kv in range(kvh):
+        qg = q[0, :, kv * g:(kv + 1) * g].double()          # (S, G, D)
+        kg, vg = k[0, :, kv].double(), v[0, :, kv].double()  # (T, D)
+        sc = torch.einsum("sgd,td->gst", qg, kg) * d ** -0.5
+        if causal:
+            sc = sc.masked_fill(~keep, float("-inf"))
+        p = torch.softmax(sc, dim=-1)
+        del sc
+        o = p @ vg                                           # (G, S, D)
+        plain_tol = tol * (1 + o.abs())
+        bound = plain_tol + P_REL * (p @ vg.abs())
+        del p
+        for name, y in outs.items():
+            err = (y[0, :, kv * g:(kv + 1) * g].double().transpose(0, 1)
+                   - o).abs()
+            r = res[name]
+            r["max_err"] = max(r["max_err"], float(err.max()))
+            r["beyond_tol"] += int((err > plain_tol).sum())
+            r["ratio"] = max(r["ratio"], float((err / bound).max()))
+    return res
+
+
+def serve_attention_check(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
+    """Every layer's roped q, k, v of an n-token prefill on the card: the
+    kernel and the plain version each held to a float64 oracle within
+    attention_error_bound (phase 3's N(0, 1) inputs have no sharp
+    softmax and no such cancellation)."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    from repro_torch.models import api
+    seen, orig = [], ops.flash_attention
+
+    def capture(q, k, v, causal=True):
+        seen.append((q, k, v, causal))
+        return orig(q, k, v, causal)
+    tok = torch.randint(16, cfg.vocab_size, (1, n), dtype=torch.int32,
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(SERVE_SEED + 3))
+    ops.flash_attention = capture
+    try:
+        api.prefill(cfg, params, tok)
+    finally:
+        ops.flash_attention = orig
+    if len(seen) != cfg.num_layers:
+        raise AssertionError(f"prefill made {len(seen)} attention calls, "
+                             f"not {cfg.num_layers}")
+    out = []
+    for i, (q, k, v, causal) in enumerate(seen):
+        tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+        got = kernel.flash_attention(q, k, v, causal)
+        want = ref.flash_attention(q, k, v, causal)
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"serve attention layer {i}: kernel output "
+                                 "not finite")
+        g = q.shape[2] // k.shape[2]
+        # head group 0's causal scores, as the kernel scales them
+        sc = torch.einsum("sgd,td->gst", q[0, :, :g].float(),
+                          k[0, :, 0].float()) * q.shape[-1] ** -0.5
+        sd = float(sc[:, torch.ones(n, n, dtype=torch.bool,
+                                    device=dev).tril()].std())
+        del sc
+        vs_plain = float((got.float() - want.float()).abs().max())
+        res = attention_error_bound(q, k, v, causal,
+                                    {"kernel": got, "plain": want}, tol)
+        out.append({"layer": i, "scores_std": sd,
+                    "kernel_vs_plain_max": vs_plain, **res})
+        log(f"serve attention layer {i} (S=T={n} H={q.shape[2]} "
+            f"Kv={k.shape[2]} D={q.shape[3]}): scores std {sd:.1f}; "
+            f"max |kernel - plain| {vs_plain:.4g}; against float64: "
+            + "; ".join(
+                f"{name} max err {r['max_err']:.4g}, {r['beyond_tol']} "
+                f"elements beyond {tol} * (1 + |o|), err / bound "
+                f"{r['ratio']:.4f}"
+                for name, r in res.items()))
+        bad = [name for name, r in res.items() if not r["ratio"] <= 1.0]
+        if bad:
+            raise AssertionError(f"serve attention layer {i}: {bad} beyond "
+                                 "the error bound of a float64 oracle")
+    return out
+
+
+def cross_check_readings(cfg, params, cpu_params, dev, prompts, seed):
+    """Prompts of the given lengths (from ``seed``) on the card, greedy for
+    CHECK_STEPS decode steps; the same prompts on the CPU, fed the card's
+    tokens.  Per prompt and step, in units of the CPU logits' std: max
+    and rms of card - CPU, and the CPU's best logit minus its logit at
+    the card's token (greedy gap)."""
+    from repro_torch.models import api
+    rng = np.random.default_rng(seed)
+    out = []
+    for plen in prompts:
+        prompt = rng.integers(16, cfg.vocab_size, (1, plen)).astype(np.int32)
+        cache, logits = api.prefill(cfg, params, t(prompt, dev))
+        cache = api.pad_cache(cfg, cache, plen + CHECK_STEPS + 1)
+        card, toks = [], []
+        for i in range(CHECK_STEPS + 1):
+            card.append(logits[0].float().cpu())
+            toks.append(int(torch.argmax(logits[0])))
+            if i < CHECK_STEPS:
+                logits, cache = api.decode_step(
+                    cfg, params, cache, torch.tensor(
+                        [[toks[-1]]], dtype=torch.int32, device=dev))
+        ccache, clog = api.prefill(cfg, cpu_params, torch.from_numpy(prompt))
+        ccache = api.pad_cache(cfg, ccache, plen + CHECK_STEPS + 1)
+        for i in range(CHECK_STEPS + 1):
+            want = clog[0].float()
+            sd = float(want.std())
+            d = card[i] - want
+            out.append({"prompt": plen, "step": i,
+                        "max": float(d.abs().max()) / sd,
+                        "rms": float(d.pow(2).mean().sqrt()) / sd,
+                        "greedy_gap": (float(want.max())
+                                       - float(want[toks[i]])) / sd})
+            if i < CHECK_STEPS:
+                clog, ccache = api.decode_step(
+                    cfg, cpu_params, ccache,
+                    torch.tensor([[toks[i]]], dtype=torch.int32))
+    return out
+
+
+def serve_cross_check(cfg, params, dev):
+    """CHECK_PROMPTS teacher-forced on the CPU from the same weights: at
+    every step the card's logits are held to the CPU's, and the card's
+    greedy token to the CPU's best logit (SERVE_TOL, SERVE_RMS_TOL)."""
+    from repro_torch.models.params import tree_map
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    rows = cross_check_readings(cfg, params, cpu_params, dev, CHECK_PROMPTS,
+                                SERVE_SEED + 2)
+    for r in rows:
+        if not (r["max"] <= SERVE_TOL and r["rms"] <= SERVE_RMS_TOL
+                and r["greedy_gap"] <= SERVE_TOL):
+            raise AssertionError(
+                f"serve cross-check: prompt {r['prompt']} step {r['step']}: "
+                f"card vs CPU max|d|/std {r['max']:.3f} (tol {SERVE_TOL}), "
+                f"rms/std {r['rms']:.3f} (tol {SERVE_RMS_TOL}), greedy "
+                f"gap/std {r['greedy_gap']:.3f}")
+    worst = {k: max(r[k] for r in rows) for k in ("max", "rms",
+                                                  "greedy_gap")}
+    cpu_s = time.perf_counter() - t0
+    log(f"serve cross-check: prompts {CHECK_PROMPTS} x {CHECK_STEPS} "
+        f"decode steps, card vs CPU (teacher-forced): worst max|d|/std "
+        f"{worst['max']:.4f}, rms/std {worst['rms']:.4f}, greedy gap/std "
+        f"{worst['greedy_gap']:.4f} (tol {SERVE_TOL} / {SERVE_RMS_TOL}); "
+        f"{cpu_s:.1f} s")
+    return {**worst, "seconds": cpu_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -771,9 +1177,13 @@ def main() -> int:
     from repro_torch.core import RefStore
     from repro_torch.core.enrich import queries as Q
     from repro_torch.kernels import (all_kernels, build_all, launch_counts,
-                                     reset_launch_counts)
+                                     path_stats, reset_launch_counts,
+                                     reset_path_stats)
 
     dev = torch.device("cuda", 0)
+    # full float32 products in the plain versions and the cross-checks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     # phase 1
@@ -790,7 +1200,8 @@ def main() -> int:
     # phase 3
     rng = np.random.default_rng(2019)
     kernels = [check_sorted_probe(dev, rng), check_radius_join(dev, rng),
-               check_segment_sum(dev, rng), check_segment_topk(dev, rng)]
+               check_segment_sum(dev, rng), check_segment_topk(dev, rng),
+               check_flash_attention(dev, rng)]
     # phase 4
     t0 = time.perf_counter()
     store = RefStore()
@@ -805,7 +1216,8 @@ def main() -> int:
     # per batch: Q1's probe, Q4's join; per Q6 state build: the income
     # join and the two district group-bys; the feed issues no top-k
     want = {"hash_probe": inv + builds, "spatial_join": inv,
-            "segment_reduce": 2 * builds, "segment_topk": 0}
+            "segment_reduce": 2 * builds, "segment_topk": 0,
+            "flash_attention": 0}
     log(f"feed: kernel launches {counts} (expected {want})")
     if counts != want or 0 in (counts["hash_probe"], counts["spatial_join"],
                                counts["segment_reduce"]):
@@ -824,12 +1236,11 @@ def main() -> int:
     # phase 7, the read path, from counts and path stats of 0: its top-k
     # launches must all be the kernel path's, and the card must take no
     # plain version (the CPU runs beside it record "reference")
-    from repro_torch.core.enrich import dispatch
     reset_launch_counts()
-    dispatch.reset_path_stats()
+    reset_path_stats()
     read = read_path(dev, store, out_dir)
     rcounts = launch_counts()
-    paths = dispatch.path_stats()
+    paths = path_stats()
     kernel_path = paths.get(("segment_topk", "kernel"), 0)
     card_plain = paths.get(("segment_topk", "plain_on_card"), 0)
     log(f"read: launches {rcounts}; segment_topk kernel-path dispatches "
@@ -840,13 +1251,47 @@ def main() -> int:
                              "kernel for every top-k")
     if rcounts["segment_reduce"] == 0:
         raise AssertionError("the read path did not run segment_sum")
+    # phase 8, serving, from counts and path stats of 0: every admission
+    # runs the flash kernel once per layer in prefill and once in the
+    # first-token apply, and no attention takes the plain version
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config(SERVE_ARCH).replace(num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"serve: {SERVE_ARCH} at full width, {cfg.num_layers} of 62 "
+        f"layers, {api.param_count(cfg):,} parameters ({cfg.param_dtype}) "
+        f"drawn in {init_s:.3f} s")
+    serve_warmup(cfg, params, dev)
+    reset_launch_counts()
+    reset_path_stats()
+    serve = serve_path(cfg, params, dev)
+    scounts = launch_counts()
+    spaths = path_stats()
+    want = {n: 0 for n in scounts}
+    want["flash_attention"] = 2 * cfg.num_layers * serve["prefills"]
+    log(f"serve: launches {scounts} (expected {want}); attention paths "
+        f"{spaths}")
+    if scounts != want or spaths.get(("flash_attention", "plain_on_card")):
+        raise AssertionError("the serving path did not run the flash "
+                             "kernel for every prefill attention")
+    serve["profile"] = profile_serving(cfg, params, dev)
+    serve["attention_check"] = serve_attention_check(cfg, params, dev)
+    serve["cross_check"] = serve_cross_check(cfg, params, dev)
+    serve["init_s"] = init_s
+    del params
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
-             "segment_sum": "segment_reduce", "segment_topk": "segment_topk"}
+             "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
+             "flash_attention": "flash_attention"}
     for k in kernels:
         by_path = {"feed": after[names[k["name"]]],
-                   "read_path": rcounts[names[k["name"]]]}
+                   "read_path": rcounts[names[k["name"]]],
+                   "serve": scounts[names[k["name"]]]}
         k["launches_by_path"] = by_path
-        k["launches"] = by_path["feed"] + by_path["read_path"]
+        k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -855,7 +1300,7 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "feed": split, "layers": layers,
                    "cross_checked_rows": checked,
-                   "query_s": q_s, "read_path": read},
+                   "query_s": q_s, "read_path": read, "serve": serve},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

@@ -25,7 +25,8 @@ which body runs:
 2048 segments, k <= 16) for integer values of any width, which rank
 clipped to [0, 2^31) on both paths.  Outside it (Q3's 50K-segment state
 build, k > 16, float values) every device takes the composite-key sort;
-on the card that is recorded as the path "plain_on_card".
+on the card that is recorded as the path "plain_on_card" in
+``repro_torch.kernels.path_stats()``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import on_cuda
+from repro_torch.kernels import note_path, on_cuda
 from repro_torch.kernels.hash_probe import ops as hp_ops
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.segment_topk import kernel as st_kernel
@@ -56,14 +57,6 @@ class DispatchConfig:
 _config = DispatchConfig()
 _stats_lock = threading.Lock()              # lock-name: dispatch-stats
 _bucket_hits: Dict[Tuple[str, int], int] = {}   # guarded-by: _stats_lock
-# (op, path) execution-path counters for the segment_* aggregation ops:
-# "kernel" = the hand kernel on the card, "reference" = the plain version
-# on CPU/meta tensors, "plain_on_card" = the plain version on the card
-# (segment_topk outside its kernel's envelope).  Callers that
-# need a per-query view (QueryStats' kernel-vs-fallback report) use the
-# thread-local tape.
-_path_hits: Dict[Tuple[str, str], int] = {}     # guarded-by: _stats_lock
-_tls = threading.local()                    # per-thread path tape
 
 
 def bucket_rows(n: int, minimum: Optional[int] = None) -> int:
@@ -89,38 +82,6 @@ def reset_bucket_stats() -> None:
 def _note(op: str, bucket: int) -> None:
     with _stats_lock:
         _bucket_hits[(op, bucket)] = _bucket_hits.get((op, bucket), 0) + 1
-
-
-def path_stats() -> Dict[Tuple[str, str], int]:
-    """(op, path) -> dispatch count for the segment_* aggregation ops;
-    path is "kernel", "reference" or "plain_on_card"."""
-    with _stats_lock:
-        return dict(_path_hits)
-
-
-def reset_path_stats() -> None:
-    with _stats_lock:
-        _path_hits.clear()
-
-
-def path_tape_start() -> None:
-    """Start recording this thread's segment_* dispatch paths."""
-    _tls.paths = {}
-
-
-def path_tape_stop() -> Dict[Tuple[str, str], int]:
-    """Stop this thread's tape and return its (op, path) counts."""
-    d = getattr(_tls, "paths", None) or {}
-    _tls.paths = None
-    return d
-
-
-def _note_path(op: str, path: str) -> None:
-    with _stats_lock:
-        _path_hits[(op, path)] = _path_hits.get((op, path), 0) + 1
-    d = getattr(_tls, "paths", None)
-    if d is not None:
-        d[(op, path)] = d.get((op, path), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +143,10 @@ def segment_sum(values: Array, seg: Array, num_segments: int,
     """Group-by sum; int32, int64, float32 and float64 all take the kernel
     on the card (64-bit atomics), so there is no wide-dtype fallback."""
     if not on_cuda(values):
-        _note_path("segment_sum", "reference")
+        note_path("segment_sum", "reference")
         from repro_torch.core.enrich import ops
         return ops._segment_sum_ref(values, seg, num_segments, valid)
-    _note_path("segment_sum", "kernel")
+    note_path("segment_sum", "kernel")
     _note("segment_sum", bucket_rows(values.shape[0]))
     seg = seg.to(torch.int32)
     if valid is not None:
@@ -217,12 +178,12 @@ def segment_topk(values: Array, seg: Array, payload: Array,
                    and not (values.dtype.is_floating_point
                             or values.dtype.is_complex))
     if not (in_envelope and on_card):
-        _note_path("segment_topk",
+        note_path("segment_topk",
                    "plain_on_card" if on_card else "reference")
         from repro_torch.core.enrich import ops
         return ops._segment_topk_ref(values, seg, payload, num_segments, k,
                                      valid)
-    _note_path("segment_topk", "kernel")
+    note_path("segment_topk", "kernel")
     _note("segment_topk", bucket_rows(r))
     segi = seg.to(torch.int32)
     if valid is not None:

@@ -79,14 +79,13 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, kernels, resolve_device
 from repro_torch.core import records
 from repro_torch.core.compaction import CompactionJob, CompactionStats
 from repro_torch.core.computing import ComputingRunner, ComputingSpec, \
     ComputingStats
 from repro_torch.core.durability import DurabilityRuntime
 from repro_torch.core.elasticity import ElasticityController, ElasticSpec
-from repro_torch.core.enrich import dispatch
 from repro_torch.core.enrich.queries import EnrichUDF
 from repro_torch.core.intake import Adapter, IntakeJob, TrackedBatch, TrackedFrame
 from repro_torch.core.obs import (FeedHealthModel, FeedObs, HealthReport,
@@ -695,8 +694,8 @@ class FeedHandle:
             reg.set_gauges({mangle(f"stage_{sname}_apply_s"): ss.apply_s})
             reg.set_counters(
                 {mangle(f"stage_{sname}_invocations"): ss.invocations})
-        # kernel-dispatch routing (process-wide tape, core/enrich/dispatch)
-        for (op, path), n in dispatch.path_stats().items():
+        # kernel-dispatch routing (process-wide, repro_torch.kernels)
+        for (op, path), n in kernels.path_stats().items():
             reg.counter(mangle(f"dispatch_path_{op}_{path}")).set(n)
         for g in self.stage_groups:
             reg.gauge(mangle(f"elastic_partitions_{g.name}")).set(

@@ -557,9 +557,9 @@ class QueryStats:
     rows_matched: int = 0        # after the predicate
     agg_invocations: int = 0     # dispatch-layer kernel calls
     agg_batched_units: int = 0   # units folded into the one-dispatch batch
-    # execution-path split of the aggregate dispatches (dispatch.py's
-    # per-thread path tape): kernel vs plain version; the port has no
-    # wide-dtype fallback, so agg_64bit_fallbacks stays 0
+    # execution-path split of the aggregate dispatches (the per-thread
+    # path tape of repro_torch.kernels): kernel vs plain version; the port
+    # has no wide-dtype fallback, so agg_64bit_fallbacks stays 0
     agg_kernel_dispatches: int = 0
     agg_fallback_dispatches: int = 0
     agg_64bit_fallbacks: int = 0
@@ -668,6 +668,7 @@ class Query:
         if self._aggs and self._select is not None:
             raise QueryError("select() and agg() are mutually exclusive: "
                              "aggregates define the output columns")
+        from repro_torch import kernels
         from repro_torch.core.enrich import dispatch
         t0 = time.perf_counter()
         stats = QueryStats()
@@ -675,7 +676,7 @@ class Query:
         snap = StoreSnapshot(self._storage) if own else snapshot
         tape = bool(self._aggs)
         if tape:
-            dispatch.path_tape_start()
+            kernels.path_tape_start()
         try:
             need = self._needed_columns()
             gagg = _GroupedAggregator(
@@ -751,7 +752,7 @@ class Query:
                        else np.empty(0) for k in sel_cols}
             if tape:
                 tape = False
-                paths = dispatch.path_tape_stop()
+                paths = kernels.path_tape_stop()
                 for (_op, path), c in paths.items():
                     if path == "kernel":
                         stats.agg_kernel_dispatches += c
@@ -765,6 +766,6 @@ class Query:
             return QueryResult(out, stats, snap.watermark)
         finally:
             if tape:
-                dispatch.path_tape_stop()
+                kernels.path_tape_stop()
             if own:
                 snap.close()

@@ -9,6 +9,13 @@ Routing is by device, not by mode: a CUDA tensor goes to the hand kernel,
 which launches or raises; a CPU or ``meta`` tensor goes to the plain
 version.  There is no dispatch-mode switch and no row threshold.
 
+Beside each kernel's launch counter, ``path_stats`` counts which body ran
+per dispatch: "kernel" (the hand kernel on the card), "reference" (the
+plain version on a CPU or ``meta`` tensor) or "plain_on_card" (the plain
+version on the card, outside the kernel's envelope).  The enrichment
+operators (core/enrich/dispatch.py) and the models' attention
+(models/layers.py) record there.
+
 Kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``_build/`` beside this file (or ``$REPRO_TORCH_BUILD_DIR``), one shared
 library per source, named by a digest of the source and flags so an edit
@@ -26,7 +33,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -149,11 +156,12 @@ class CudaKernel:
 def all_kernels() -> List[CudaKernel]:
     """Every hand kernel of the port (imports are local: importing this
     package must not import the kernel wrappers)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.hash_probe import kernel as hp
     from repro_torch.kernels.segment_reduce import kernel as sr
     from repro_torch.kernels.segment_topk import kernel as st
     from repro_torch.kernels.spatial_join import kernel as sj
-    return [hp.KERNEL, sj.KERNEL, sr.KERNEL, st.KERNEL]
+    return [hp.KERNEL, sj.KERNEL, sr.KERNEL, st.KERNEL, fa.KERNEL]
 
 
 _build_all_lock = threading.Lock()   # lock-name: kernel-build-all blocking-ok
@@ -180,3 +188,43 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in all_kernels()}
+
+
+# (op, path) dispatch counters, process-wide and on a per-thread tape
+# (QueryStats' kernel-vs-fallback report reads the tape)
+_path_lock = threading.Lock()                # lock-name: kernel-paths
+_path_hits: Dict[Tuple[str, str], int] = {}  # guarded-by: _path_lock
+_tls = threading.local()                     # per-thread path tape
+
+
+def note_path(op: str, path: str) -> None:
+    """Count one dispatch of ``op`` by ``path``."""
+    with _path_lock:
+        _path_hits[(op, path)] = _path_hits.get((op, path), 0) + 1
+    d: Optional[Dict] = getattr(_tls, "paths", None)
+    if d is not None:
+        d[(op, path)] = d.get((op, path), 0) + 1
+
+
+def path_stats() -> Dict[Tuple[str, str], int]:
+    """(op, path) -> dispatch count; path is "kernel", "reference" or
+    "plain_on_card"."""
+    with _path_lock:
+        return dict(_path_hits)
+
+
+def reset_path_stats() -> None:
+    with _path_lock:
+        _path_hits.clear()
+
+
+def path_tape_start() -> None:
+    """Start recording this thread's dispatch paths."""
+    _tls.paths = {}
+
+
+def path_tape_stop() -> Dict[Tuple[str, str], int]:
+    """Stop this thread's tape and return its (op, path) counts."""
+    d = getattr(_tls, "paths", None) or {}
+    _tls.paths = None
+    return d

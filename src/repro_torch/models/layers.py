@@ -1,0 +1,289 @@
+"""Common transformer layers, dense subset: RMSNorm, RoPE, GQA attention
+(full sequence / prefill / decode with per-example cache positions), MLP,
+embedding.  Mirrors ``repro.models.layers``; tensors keep its layouts
+((B, S, H, D) activations, (B, Smax, Kv, D) caches).
+
+Attention without segment ids over default positions (``positions`` is
+``None``: arange from 0 on both sides) is what the flash kernel computes,
+with S <= T when causal.  ``_sdpa`` sends those calls to
+``kernels.flash_attention.ops``: the hand kernel for CUDA tensors, its
+plain version elsewhere.  Other calls (packed segments, explicit
+positions) run the plain computation below, and on the card they are
+recorded in ``repro_torch.kernels.path_stats()`` as ("flash_attention",
+"plain_on_card").  ``repro``'s ``_chunked_gqa`` is not ported: it is an
+XLA memory device for the same function.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import note_path, on_cuda
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.params import PSpec
+from repro_torch.models.sharding import shard
+
+Array = torch.Tensor
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
+                 # for fully-masked rows (padding slots in packed batches)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: Array, w: Array, eps: float) -> Array:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def rmsnorm_spec(d: int) -> PSpec:
+    return PSpec((d,), ("embed",), init="ones", dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def default_positions(b: int, s: int, device) -> Array:
+    """(B, S) int32 arange: what ``positions=None`` stands for."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def rope(x: Array, positions: Array, theta: float) -> Array:
+    """Rotate-half RoPE.  x: (..., S, H, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta) *
+                     torch.arange(0, half, dtype=torch.float32,
+                                  device=x.device) / half)
+    ang = positions.float()[..., None] * freq                   # (..., S, half)
+    sin = torch.sin(ang)[..., None, :]                          # (..., S, 1, half)
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    rest = x[..., 2 * half:]
+    return torch.cat([out1.to(x.dtype), out2.to(x.dtype), rest], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention parameter specs
+# ---------------------------------------------------------------------------
+
+def attention_specs(cfg: ModelConfig, d_in: Optional[int] = None) -> Dict:
+    d = d_in or cfg.d_model
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    specs = {
+        "wq": PSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": PSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = PSpec((h, hd), ("heads", "head_dim"), init="zeros")
+        specs["bk"] = PSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        specs["bv"] = PSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+    return specs
+
+
+def _qkv(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array, Array]:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def _gqa_scores(q: Array, k: Array, q_per_kv: int) -> Array:
+    """q: (B,S,H,D) -> grouped (B,Kv,G,S,D); k: (B,T,Kv,D).
+    Returns fp32 scores (B,Kv,G,S,T) (bf16 inputs widen exactly)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    q = q.reshape(b, s, kvh, q_per_kv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    return scores * (d ** -0.5)
+
+
+def _gqa_out(probs: Array, v: Array) -> Array:
+    """probs: (B,Kv,G,S,T); v: (B,T,Kv,D) -> (B,S,H,D)."""
+    b, kvh, g, s, t = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, kvh * g, v.shape[-1])
+
+
+def causal_mask(positions_q: Array, positions_k: Array,
+                seg_q: Optional[Array], seg_k: Optional[Array]) -> Array:
+    """(B,S,T) boolean mask: causal in *positions* and packing-aware."""
+    m = positions_q[:, :, None] >= positions_k[:, None, :]
+    if seg_q is not None:
+        m = m & (seg_q[:, :, None] == seg_k[:, None, :])
+    return m
+
+
+def _sdpa(cfg: ModelConfig, q: Array, k: Array, v: Array,
+          pos_q: Optional[Array], pos_k: Optional[Array],
+          seg_q: Optional[Array], seg_k: Optional[Array],
+          causal: bool) -> Array:
+    """Scaled-dot-product GQA attention.  Returns (B,S,H,D).
+
+    ``pos_q``/``pos_k`` of ``None`` are default positions (arange from 0).
+    With default positions, no segment ids and S <= T when causal, this
+    is flash attention (top-left causal mask): the kernel on the card,
+    its plain version elsewhere.  Anything else is the plain masked
+    softmax, recorded as "plain_on_card" when it runs on the card."""
+    s, t = q.shape[1], k.shape[1]
+    if (pos_q is None and pos_k is None and seg_q is None
+            and seg_k is None and (not causal or s <= t)):
+        return fa_ops.flash_attention(q, k, v, causal)
+    note_path("flash_attention",
+              "plain_on_card" if on_cuda(q) else "reference")
+    b = q.shape[0]
+    if pos_q is None:
+        pos_q = default_positions(b, s, q.device)
+    if pos_k is None:
+        pos_k = default_positions(b, t, k.device)
+    scores = _gqa_scores(q, k, cfg.q_per_kv)      # (B,Kv,G,S,T) fp32
+    if causal or seg_q is not None:
+        m = causal_mask(pos_q, pos_k, seg_q, seg_k) if causal else (
+            seg_q[:, :, None] == seg_k[:, None, :])
+        scores = torch.where(m[:, None, None], scores, NEG_INF)
+    return _gqa_out(torch.softmax(scores, dim=-1), v)
+
+
+def attention(cfg: ModelConfig, p: Dict, x: Array,
+              positions: Optional[Array],
+              segment_ids: Optional[Array] = None) -> Array:
+    """Full-sequence causal attention. x: (B,S,D); ``positions`` None
+    means arange from 0."""
+    q, k, v = _qkv(cfg, p, x)
+    pos = positions if positions is not None else default_positions(
+        x.shape[0], x.shape[1], x.device)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    q = shard(q, "batch", "act_seq", "heads", None)
+    k = shard(k, "batch", "act_seq", "kv_heads", None)
+    v = shard(v, "batch", "act_seq", "kv_heads", None)
+    out = _sdpa(cfg, q, k, v, positions, positions,
+                segment_ids, segment_ids, True)
+    out = shard(out, "batch", "act_seq", "heads", None)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def attention_prefill(cfg: ModelConfig, p: Dict, x: Array
+                      ) -> Tuple[Array, Tuple[Array, Array]]:
+    """Like ``attention`` over default positions, also returning (k, v)
+    for cache construction."""
+    q, k, v = _qkv(cfg, p, x)
+    pos = default_positions(x.shape[0], x.shape[1], x.device)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    k = shard(k, "batch", "kv_seq", "kv_heads", None)
+    v = shard(v, "batch", "kv_seq", "kv_heads", None)
+    out = _sdpa(cfg, q, k, v, None, None, None, None, True)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return y, (k, v)
+
+
+def cache_update(k_cache: Array, v_cache: Array, k_new: Array, v_new: Array,
+                 pos: Array) -> Tuple[Array, Array]:
+    """Write one new token per example at per-example positions, IN PLACE
+    (``repro`` returns new arrays; the port saves the copy).  caches:
+    (B, Smax, Kv, D); new: (B, 1, Kv, D); pos: (B,) int32.  A position
+    past the end writes the last slot, as ``dynamic_update_slice``
+    clamps its start."""
+    b, smax = k_cache.shape[:2]
+    rows = torch.arange(b, device=k_cache.device)
+    at = pos.long().clamp(0, smax - 1)
+    k_cache[rows, at] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def attention_decode(cfg: ModelConfig, p: Dict, x: Array, pos: Array,
+                     k_cache: Array, v_cache: Array,
+                     ) -> Tuple[Array, Array, Array]:
+    """Single-token decode. x: (B,1,D); pos: (B,) current position;
+    caches: (B,Smax,Kv,D), updated in place. Returns (out, k_cache,
+    v_cache).  Plain PyTorch, as in ``repro``: no kernel."""
+    smax = k_cache.shape[1]
+    q, k_new, v_new = _qkv(cfg, p, x)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+    k_cache, v_cache = cache_update(k_cache, v_cache, k_new, v_new, pos)
+    scores = _gqa_scores(q, k_cache, cfg.q_per_kv)    # (B,Kv,G,1,Smax)
+    valid = (torch.arange(smax, device=x.device)[None]
+             <= pos[:, None])                          # (B,Smax)
+    scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v_cache)                    # (B,1,H,D)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return y, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    """SwiGLU, the dense family's MLP (the gelu variant is whisper's,
+    with encdec)."""
+    if cfg.mlp_variant != "swiglu":
+        raise NotImplementedError(
+            f"mlp_variant {cfg.mlp_variant!r} comes with the encdec family "
+            "(ROADMAP Queue 1 item 10)")
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "w_gate": PSpec((d, f), ("embed", "ffn")),
+        "w_up": PSpec((d, f), ("embed", "ffn")),
+        "w_down": PSpec((f, d), ("ffn", "embed")),
+    }
+
+
+def mlp(cfg: ModelConfig, p: Dict, x: Array) -> Array:
+    g = torch.matmul(x, p["w_gate"].to(x.dtype))
+    u = torch.matmul(x, p["w_up"].to(x.dtype))
+    h = torch.nn.functional.silu(g) * u
+    h = shard(h, "batch", "act_seq", "ffn")
+    return torch.matmul(h, p["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embedding_specs(cfg: ModelConfig) -> Dict:
+    specs = {
+        "tok": PSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                     init="embed"),
+        "norm_f": rmsnorm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = PSpec((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), init="embed")
+    return specs
+
+
+def embed(p: Dict, tokens: Array, dtype: torch.dtype) -> Array:
+    x = p["tok"][tokens.long()].to(dtype)
+    return shard(x, "batch", "seq", None)
+
+
+def unembed(cfg: ModelConfig, p: Dict, x: Array) -> Array:
+    """Float32 logits (B,S,V): the head in x's dtype, widened exactly, so
+    the products accumulate in float32 and are never rounded to bf16."""
+    w = p.get("head", p["tok"])
+    logits = torch.matmul(x.float(), w.to(x.dtype).float().t())
+    if cfg.logits_softcap > 0:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return shard(logits, "batch", "logits_seq", "vocab")

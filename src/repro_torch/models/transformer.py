@@ -1,0 +1,202 @@
+"""Decoder-only transformer LM, dense family.  Mirrors
+``repro.models.transformer``.
+
+Layer parameters are stacked along a leading "layers" axis, as in
+``repro`` (so ``params_from_numpy`` carries them across unchanged), and
+the stack runs as a Python loop over that axis where ``repro`` scans.
+The moe and vlm families of ``repro``'s module raise here: they are
+ROADMAP Queue 1 item 10.  The training loss (``loss``, ``chunked_xent``)
+waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import PSpec, torch_dtype, tree_map
+from repro_torch.models.sharding import shard
+
+Array = torch.Tensor
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(ROADMAP Queue 1 item 10); the port serves dense models")
+
+
+def stack_specs(specs: Any, n: int, axis: str = "layers") -> Any:
+    """Prepend a stacked-layer dim to every PSpec leaf."""
+    def one(s: PSpec) -> PSpec:
+        return PSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale,
+                     s.dtype)
+    return tree_map(one, specs)
+
+
+def layer_params(params: Dict, i: int) -> Dict:
+    """Layer ``i`` of the stacked layer tree (views, no copy)."""
+    return tree_map(lambda x: x[i], params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def layer_specs(cfg: ModelConfig) -> Dict:
+    require_dense(cfg)
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_specs(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "mlp": L.mlp_specs(cfg),
+    }
+
+
+def specs(cfg: ModelConfig) -> Dict:
+    return {
+        "embed": L.embedding_specs(cfg),
+        "layers": stack_specs(layer_specs(cfg), cfg.num_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _block_train(cfg: ModelConfig, p: Dict, x: Array,
+                 positions: Optional[Array],
+                 segment_ids: Optional[Array]) -> Tuple[Array, Array]:
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.attention(cfg, p["attn"], h, positions, segment_ids)
+    x = shard(x, "batch", "seq", None)
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    f = L.mlp(cfg, p["mlp"], h)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + f
+    return shard(x, "batch", "seq", None), aux
+
+
+def _forward(cfg: ModelConfig, params: Dict, x: Array,
+             positions: Optional[Array],
+             segment_ids: Optional[Array]) -> Tuple[Array, Array]:
+    """Run the layer stack. Returns (hidden, mean aux loss)."""
+    auxs = []
+    for i in range(cfg.num_layers):
+        x, aux = _block_train(cfg, layer_params(params, i), x, positions,
+                              segment_ids)
+        auxs.append(aux)
+    return x, torch.stack(auxs).mean()
+
+
+def _inputs_embed(cfg: ModelConfig, params: Dict, tokens: Array,
+                  frontend: Optional[Array]) -> Array:
+    """Token embedding (the vlm family's frontend stub is not ported)."""
+    if frontend is not None:
+        raise NotImplementedError("frontend embeddings belong to the vlm "
+                                  "family (ROADMAP Queue 1 item 10)")
+    return L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def apply(cfg: ModelConfig, params: Dict, batch: Dict) -> Tuple[Array, Array]:
+    """Forward returning full float32 logits (B,S,V)."""
+    x, aux = hidden_states(cfg, params, batch)
+    return L.unembed(cfg, params["embed"], x), aux
+
+
+def hidden_states(cfg: ModelConfig, params: Dict, batch: Dict
+                  ) -> Tuple[Array, Array]:
+    """Final-norm hidden states. Returns (x (B,S,D), aux).  Without
+    ``positions`` in the batch the attention takes default positions (and
+    so, without ``segment_ids``, the flash kernel)."""
+    x = _inputs_embed(cfg, params, batch["tokens"], batch.get("frontend"))
+    x, aux = _forward(cfg, params, x, batch.get("positions"),
+                      batch.get("segment_ids"))
+    x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _block_prefill(cfg, p, x):
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, kv = L.attention_prefill(cfg, p["attn"], h)
+    x = x + a
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(cfg, p["mlp"], h), kv
+
+
+def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
+            frontend: Optional[Array] = None) -> Tuple[Dict, Array]:
+    """Returns (cache {k,v:(L,B,S,Kv,hd), len:(B,)}, logits (B,V) at last)."""
+    x = _inputs_embed(cfg, params, tokens, frontend)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, (k, v) = _block_prefill(cfg, layer_params(params, i), x)
+        ks.append(k)
+        vs.append(v)
+    x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
+    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+             "len": torch.full((tokens.shape[0],), x.shape[1],
+                               dtype=torch.int32, device=x.device)}
+    return cache, logits
+
+
+def _block_decode(cfg, p, x, pos, k_cache, v_cache):
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, k_cache, v_cache = L.attention_decode(
+        cfg, p["attn"], h, pos, k_cache, v_cache)
+    x = x + a
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(cfg, p["mlp"], h), k_cache, v_cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: Array) -> Tuple[Array, Dict]:
+    """One decode step. tokens: (B,1); cache k/v: (L,B,Smax,Kv,hd).
+    Returns (logits (B,V), new cache).  The k/v tensors are written in
+    place: the new cache shares them with ``cache``."""
+    pos = cache["len"]                                    # (B,)
+    x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    k, v = cache["k"], cache["v"]
+    for i in range(cfg.num_layers):
+        x, _, _ = _block_decode(cfg, layer_params(params, i), x, pos, k[i],
+                                v[i])
+    x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
+    logits = L.unembed(cfg, params["embed"], x)[:, 0]
+    return logits, {"k": k, "v": v, "len": pos + 1}
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor to allocate (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int
+                   ) -> Tuple[Dict, Dict]:
+    """TensorSpecs + logical axes for a decode cache."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    shapes = {
+        "k": TensorSpec((cfg.num_layers, batch, max_len, kv, hd), dt),
+        "v": TensorSpec((cfg.num_layers, batch, max_len, kv, hd), dt),
+        "len": TensorSpec((batch,), torch.int32),
+    }
+    axes = {
+        "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+        "len": ("batch",),
+    }
+    return shapes, axes

@@ -1,0 +1,145 @@
+"""Slot-based continuous-batching serving engine (``repro.serve.engine``
+on PyTorch).
+
+A fixed pool of ``slots`` decode lanes shares one batched KV cache.
+Incoming requests are prefilled one at a time (prompt lengths bucketed,
+as in ``repro``, where the buckets bound the compiled prefill shapes) and
+spliced into a free slot; the decode step always runs the full batch, and
+finished slots are refilled between steps.
+
+Bucketed prefill correctness: the prompt is right-padded to the bucket, the
+slot's ``len`` is reset to the true prompt length, and the first-token
+logits are taken at the true last position.  Junk cache rows beyond the
+true length are overwritten by the decode writes before the causal mask can
+ever expose them.
+
+On the card every admission runs the flash kernel in each layer twice:
+in ``prefill`` and in the first-token ``apply``.  The engine keeps the
+host-clock seconds of its admissions (``prefill_s``) and decode steps
+(``decode_s``); both end in a device-to-host read of the chosen tokens,
+so they include the device's work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.tokenizer import EOS
+from repro_torch.models import api
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: List[int]
+    max_new_tokens: int = 16
+    stop_at_eos: bool = True
+    rid: int = dataclasses.field(default_factory=itertools.count().__next__)
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, slots: int = 4,
+                 max_len: int = 256, prompt_bucket: int = 16,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        self.bucket = prompt_bucket
+        cshapes, _ = api.cache_specs(cfg, slots, max_len)
+        self.cache = {k: torch.zeros(s.shape, dtype=s.dtype,
+                                     device=self.device)
+                      for k, s in cshapes.items()}
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        self.completed: List[Request] = []
+        self.decode_steps = 0
+        self.prefills = 0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+
+    # ----------------------------------------------------------------- admin
+    def submit(self, req: Request) -> Request:
+        self.queue.append(req)
+        return req
+
+    def _insert(self, slot: int, req: Request) -> None:
+        t0 = time.perf_counter()
+        true_len = len(req.prompt)
+        blen = _round_up(true_len, self.bucket)
+        prompt = np.zeros((1, blen), np.int32)
+        prompt[0, :true_len] = req.prompt
+        tokens = torch.from_numpy(prompt).to(self.device)
+        cache1, _ = api.prefill(self.cfg, self.params, tokens)
+        cache1 = api.pad_cache(self.cfg, cache1, self.max_len)
+        self.prefills += 1
+        # first-token logits at the true last prompt position
+        logits, _ = api.apply(self.cfg, self.params, {"tokens": tokens})
+        first = int(torch.argmax(logits[0, true_len - 1]))
+
+        for key, full in self.cache.items():
+            if key == "len":
+                full[slot] = true_len
+            else:   # splice the single-request cache into batch slot
+                full[:, slot] = cache1[key][:, 0].to(full.dtype)
+        req.tokens.append(first)
+        self.active[slot] = req
+        self.prefill_s += time.perf_counter() - t0
+        if req.stop_at_eos and first == EOS:
+            self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        req = self.active[slot]
+        req.done = True
+        self.completed.append(req)
+        self.active[slot] = None
+
+    # ------------------------------------------------------------------ run
+    def step(self) -> bool:
+        """Admit + one decode step.  Returns False when fully idle."""
+        for slot in range(self.slots):
+            if self.active[slot] is None and self.queue:
+                self._insert(slot, self.queue.pop(0))
+        live = [s for s in range(self.slots) if self.active[s] is not None]
+        if not live:
+            return bool(self.queue)
+        t0 = time.perf_counter()
+        tok = np.zeros((self.slots, 1), np.int32)
+        for s in live:
+            tok[s, 0] = self.active[s].tokens[-1]
+        logits, self.cache = api.decode_step(
+            self.cfg, self.params, self.cache,
+            torch.from_numpy(tok).to(self.device))
+        self.decode_steps += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.decode_s += time.perf_counter() - t0
+        for s in live:
+            req = self.active[s]
+            t = int(nxt[s])
+            req.tokens.append(t)
+            if (req.stop_at_eos and t == EOS) or \
+                    len(req.tokens) >= req.max_new_tokens or \
+                    len(req.prompt) + len(req.tokens) >= self.max_len - 1:
+                self._finish(s)
+        return True
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        for _ in range(max_steps):
+            if not self.step():
+                break
+        done, self.completed = self.completed, []
+        return done

@@ -184,7 +184,9 @@ def test_port_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch.core, repro_torch.kernels.hash_probe, "
             "repro_torch.kernels.spatial_join, "
             "repro_torch.kernels.segment_reduce, "
-            "repro_torch.kernels.segment_topk;"
+            "repro_torch.kernels.segment_topk, "
+            "repro_torch.kernels.flash_attention, repro_torch.models.api, "
+            "repro_torch.serve, repro_torch.launch.serve;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')];"
