@@ -11,7 +11,11 @@ Phases, each fatal on failure:
      shapes of the feed, the read path and serving (seeded inputs) and time
      kernel, plain version and the one PyTorch call computing the same
      function (none for segment_topk; scaled_dot_product_attention for
-     flash_attention);
+     flash_attention): each call's time, and for kernels and library calls
+     the device's time per launch over back-to-back launches; flash
+     attention logs the body (wgmma, mma_sync, cuda_core) of every case,
+     and at the serving shape must take the wgmma body, held and timed
+     beside the mma_sync body it replaced;
   4. the feed: a fused Q1 -> Q4 -> Q6 plan over 20 x 6,720 tweets at the
      paper's reference cardinalities (scale 1.0), through FeedManager;
      the launch counters of its three kernels must grow during this run,
@@ -30,10 +34,11 @@ Phases, each fatal on failure:
      and 32 new tokens each through ServingEngine on 4 slots; every
      prefill and first-token attention must take the flash kernel (2 x
      layers launches per admission, no "plain_on_card" attention); one
-     prefill, apply and decode step profiled; each layer's q, k, v of a
-     1,536-token prefill held kernel against plain version; prompts of
-     32, 40 and 200 tokens teacher-forced on the CPU from the same
-     weights, logits held to the card's.
+     prefill, apply and decode step profiled, whose flash time must all
+     be the wgmma body's; each layer's q, k, v of a 1,536-token prefill
+     held kernel against plain version; prompts of 32, 40 and 200
+     tokens teacher-forced on the CPU from the same weights, logits held
+     to the card's.
 Each path (4-6, 7, 8) runs with the launch counts set to 0 just before it
 and read just after; the kernels line gives each kernel's launches on the
 three paths (feed, read_path, serve) and their sum.
@@ -96,6 +101,33 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return float(statistics.median(times))
 
 
+def device_ms(fn, n: int = 30) -> float:
+    """Device time per launch in ms: ``n`` back-to-back launches of ``fn``
+    between one event pair, divided by ``n``.  A sleep kernel ahead of them
+    holds the stream until all ``n`` are queued, so the host's cost per
+    call (in ``time_ms``'s single-call time) does not space them out.
+    ``fn`` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000          # ~10 ms at an H100's clock
+    for _ in range(4):
+        s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if host_ms < s0.elapsed_time(a):
+            return a.elapsed_time(b) / n
+        cycles *= 4
+    raise AssertionError(f"{n} launches took {host_ms:.1f} ms to queue, "
+                         "longer than the sleep ahead of them")
+
+
 def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_S):
     tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak_ops * 1e3
     return (max(tb, to), "bytes" if tb >= to else "operations")
@@ -152,17 +184,21 @@ def check_sorted_probe(dev, rng):
     ms = time_ms(lambda: kernel.sorted_probe(p, k))
     plain = time_ms(lambda: ref.sorted_probe(p, k))
     lib = time_ms(lambda: torch.searchsorted(k, p))
+    dev_ms = device_ms(lambda: kernel.sorted_probe(p, k))
+    lib_dev = device_ms(lambda: torch.searchsorted(k, p))
     nbytes = BATCH * 8 + r * 8 + BATCH * (4 + 1)
     b_ms, b_by = bound(nbytes, BATCH * np.ceil(np.log2(r)))
     log(f"kernel sorted_probe B={BATCH} R={r}: max_abs_err={err} "
-        f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+        f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+        f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} "
         f"(torch.searchsorted) bound_ms={b_ms:.6f} ({b_by}) "
         f"hits={int(gf.sum())}")
     return {"name": "sorted_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/hash_probe/csrc/hash_probe.cu",
             "replaces": "src/repro/kernels/hash_probe/kernel.py:75",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "library_device_ms": lib_dev}
 
 
 def check_radius_join(dev, rng):
@@ -199,13 +235,18 @@ def check_radius_join(dev, rng):
         r2 = torch.stack(args[2:], 1)[:r_valid]
         lib = time_ms(lambda: torch.topk(torch.cdist(p2, r2), k,
                                          largest=False), reps=5)
+        dev_ms = device_ms(lambda: kernel.radius_join(*args, 1.5, k, vt))
+        lib_dev = device_ms(lambda: torch.topk(torch.cdist(p2, r2), k,
+                                               largest=False), n=10)
         nbytes = BATCH * 8 + r * 9 + BATCH * k * 8 + BATCH * 4
         b_ms, b_by = bound(nbytes, 5.0 * BATCH * r_valid)
         log(f"kernel radius_join B={BATCH} R={r} k={k} r=1.5: "
-            f"max_abs_err={derr} ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} (cdist+topk) bound_ms={b_ms:.6f} "
-            f"({b_by}) in_radius={int(gc.sum())}")
-        out[k] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            f"max_abs_err={derr} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"library_device_ms={lib_dev:.4f} (cdist+topk) "
+            f"bound_ms={b_ms:.6f} ({b_by}) in_radius={int(gc.sum())}")
+        out[k] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                  "library_ms": lib, "library_device_ms": lib_dev,
                   "bound_ms": b_ms, "bound_by": b_by}
     return {"name": "radius_join", "route": "cuda",
             "source": ("src/repro_torch/kernels/spatial_join/csrc/"
@@ -251,14 +292,19 @@ def check_segment_sum(dev, rng):
         def library():
             torch.zeros(s, dtype=vt.dtype, device=dev).index_add_(0, lt, lv)
         lib = time_ms(library)
+        dev_ms = device_ms(lambda: kernel.segment_sum(vt, st, s))
+        lib_dev = device_ms(library)
         isz = np.dtype(dt).itemsize
         b_ms, b_by = bound(r * (isz + 4) + s * isz, float(r))
         log(f"kernel segment_sum[{np.dtype(dt).name}] R={r} S={s}: "
-            f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} (index_add_) bound_ms={b_ms:.6f} "
-            f"({b_by})")
+            f"max_abs_err={err:.3g} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"library_device_ms={lib_dev:.4f} (index_add_) "
+            f"bound_ms={b_ms:.6f} ({b_by})")
         rows[np.dtype(dt).name] = {"max_abs_err": err, "ms": ms,
-                                   "plain_ms": plain, "library_ms": lib,
+                                   "device_ms": dev_ms, "plain_ms": plain,
+                                   "library_ms": lib,
+                                   "library_device_ms": lib_dev,
                                    "bound_ms": b_ms, "bound_by": b_by}
     head = rows["int32"]
     return {"name": "segment_sum", "route": "cuda",
@@ -304,6 +350,8 @@ def check_segment_topk(dev, rng):
                                      "slots differ from the plain version")
             err = float((got.long() - want.long()).abs().max())
             ms = time_ms(lambda: kernel.segment_topk_idx(vt, st, s, k))
+            dev_ms = device_ms(
+                lambda: kernel.segment_topk_idx(vt, st, s, k), n=10)
             plain = time_ms(lambda: ref.segment_topk_idx(vt, st, s, k),
                             reps=5)
             b_ms, b_by = bound(r * (vals.itemsize + 4) + s * k * 4,
@@ -311,18 +359,20 @@ def check_segment_topk(dev, rng):
             tag = f"{vname} S={s}" + (f" groups={groups}"
                                       if groups != s else "") + f" k={k}"
             log(f"kernel segment_topk[{tag}] R={r}: max_abs_err={err} "
-                f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=null "
-                f"bound_ms={b_ms:.6f} ({b_by}) "
+                f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms=null bound_ms={b_ms:.6f} ({b_by}) "
                 f"filled={int((got >= 0).sum())}")
-            rows[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "library_ms": None, "bound_ms": b_ms,
+            rows[tag] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": plain, "library_ms": None,
+                         "library_device_ms": None, "bound_ms": b_ms,
                          "bound_by": b_by}
     # no single PyTorch call computes a per-segment top-k; the stable sort
     # of the composite key, the core of the plain version, for scale
     comp = torch.randint(0, 2**40, (r,), device=dev)
     sort_ms = time_ms(lambda: torch.sort(comp, stable=True))
+    sort_dev = device_ms(lambda: torch.sort(comp, stable=True), n=10)
     log(f"segment_topk scale: torch.sort(int64 composite, stable=True) "
-        f"R={r}: {sort_ms:.4f} ms")
+        f"R={r}: {sort_ms:.4f} ms, device {sort_dev:.4f} ms")
     vname, s, k = TOPK_HEAD
     return {"name": "segment_topk", "route": "cuda",
             "source": ("src/repro_torch/kernels/segment_topk/csrc/"
@@ -330,14 +380,18 @@ def check_segment_topk(dev, rng):
             "replaces": "src/repro/kernels/segment_topk/kernel.py:108",
             **rows[f"{vname} S={s} k={k}"],
             "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
-            "stable_sort_ms": sort_ms, "by_case": rows}
+            "stable_sort_ms": sort_ms, "stable_sort_device_ms": sort_dev,
+            "by_case": rows}
 
 
 # (B, S, T, H, Kv, D, causal, dtype): G = H / Kv in {1, 4, 7}, D in {64,
-# 112, 128} (72 takes the CUDA-core body in bf16), S off the 64- and
-# 32-row tiles, causal S < T (top-left), non-causal S < T
+# 112, 128} (bf16: 64 and 128 take the wgmma body, 112 mma_sync, 72 the
+# CUDA-core body), S off the 128-, 64- and 32-row tiles, causal S < T
+# (top-left), non-causal S < T, one row and one key
 FLASH_CASES = [
     (1, 1536, 1536, 56, 8, 128, True, "bfloat16"),   # the serving prefill
+    (2, 1000, 1000, 56, 8, 128, True, "bfloat16"),
+    (1, 1, 1, 56, 8, 128, True, "bfloat16"),
     (2, 300, 300, 8, 8, 64, True, "bfloat16"),
     (1, 333, 333, 16, 4, 112, True, "bfloat16"),
     (1, 100, 300, 8, 2, 64, True, "bfloat16"),
@@ -360,8 +414,10 @@ PEAK_BF16_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 
 def check_flash_attention(dev, rng):
     """The kernel against its plain version on the card in every case of
-    FLASH_CASES, then timed (kernel, plain version, PyTorch's
-    scaled_dot_product_attention) at FLASH_TIMED, causal bf16."""
+    FLASH_CASES (logging the body each takes), then timed at FLASH_TIMED,
+    causal bf16: the wgmma body, the mma_sync body it replaced at these
+    shapes, the plain version and PyTorch's scaled_dot_product_attention,
+    each call's time and (kernels, library) the device's per launch."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
     err = 0.0
@@ -387,8 +443,8 @@ def check_flash_attention(dev, rng):
                 f"{FLASH_TOL[dt]} * (1 + |plain|)")
         err = max(err, e)
         log(f"kernel flash_attention[B={b} S={s} T={t_} H={h} Kv={kv} "
-            f"D={d} causal={causal} {dt}]: max_abs_err={e:.3g} "
-            f"(tol {FLASH_TOL[dt]})")
+            f"D={d} causal={causal} {dt}]: body={kernel.body(tdt, d)} "
+            f"max_abs_err={e:.3g} (tol {FLASH_TOL[dt]})")
     rows = {}
     for b, s, h, kv, d in FLASH_TIMED:
         q = t(rng.normal(size=(b, s, h, d)).astype(np.float32), dev).to(
@@ -397,22 +453,60 @@ def check_flash_attention(dev, rng):
             torch.bfloat16)
         v = t(rng.normal(size=(b, s, kv, d)).astype(np.float32), dev).to(
             torch.bfloat16)
-        ms = time_ms(lambda: kernel.flash_attention(q, k, v, True))
-        plain = time_ms(lambda: ref.flash_attention(q, k, v, True), reps=5)
+        body = kernel.body(q.dtype, d)
+        if body != "wgmma":
+            raise AssertionError(f"flash_attention at bf16 D={d} takes the "
+                                 f"{body} body, not wgmma")
+        old = torch.empty_like(q)
+
+        def wgmma():
+            kernel.flash_attention(q, k, v, True)
+
+        def mma_sync():
+            # the body the wgmma body replaced at this shape: the library's
+            # other entry point, which runs mma_sync for any bf16 D that
+            # is a multiple of 16
+            kernel.KERNEL.launch("flash_attention", dev, q.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(), old.data_ptr(),
+                                 b, s, s, h, kv, d, 1, d ** -0.5,
+                                 kernel.DTYPES[q.dtype])
+        want = ref.flash_attention(q, k, v, True).float()
+        mma_sync()
+        for name, got in (("wgmma", kernel.flash_attention(q, k, v, True)),
+                          ("mma_sync", old)):
+            diff = (got.float() - want).abs()
+            if bool((diff > FLASH_TOL["bfloat16"] * (1 + want.abs())).any()):
+                raise AssertionError(
+                    f"flash_attention's {name} body at S=T={s}: max |kernel "
+                    f"- plain| {float(diff.max())} beyond "
+                    f"{FLASH_TOL['bfloat16']} * (1 + |plain|)")
+        del want
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        ms, old_ms, lib = time_ms(wgmma), time_ms(mma_sync), time_ms(library)
+        dev_ms, old_dev, lib_dev = (device_ms(wgmma), device_ms(mma_sync),
+                                    device_ms(library))
+        plain = time_ms(lambda: ref.flash_attention(q, k, v, True), reps=5)
         # causal: half of the 4 B H S T D products; q, k, v, o once each
         flops = 2.0 * b * h * s * s * d
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
         log(f"kernel flash_attention[B={b} S=T={s} H={h} Kv={kv} D={d} "
-            f"causal bf16]: ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} (scaled_dot_product_attention) "
-            f"bound_ms={b_ms:.6f} ({b_by}) "
-            f"achieved={flops / ms / 1e9:.1f} TFLOP/s")
-        rows[f"S={s}"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                          "bound_ms": b_ms, "bound_by": b_by}
+            f"causal bf16]: body={body} ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"(mma_sync body: ms={old_ms:.4f} device_ms={old_dev:.4f}) "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+            f"library_device_ms={lib_dev:.4f} "
+            f"(scaled_dot_product_attention) bound_ms={b_ms:.6f} ({b_by}) "
+            f"achieved={flops / dev_ms / 1e9:.1f} TFLOP/s on the device, "
+            f"{flops / ms / 1e9:.1f} per call")
+        rows[f"S={s}"] = {"body": body, "ms": ms, "device_ms": dev_ms,
+                          "mma_sync_ms": old_ms, "mma_sync_device_ms": old_dev,
+                          "plain_ms": plain, "library_ms": lib,
+                          "library_device_ms": lib_dev, "bound_ms": b_ms,
+                          "bound_by": b_by}
     return {"name": "flash_attention", "route": "cuda",
             "source": ("src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu"),
@@ -969,6 +1063,11 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
         prof, wall_ms = profiled(fn)
         dev_ms, flash_ms = kernel_device_ms(prof), kernel_device_ms(
             prof, "flash_")
+        wgmma_ms = kernel_device_ms(prof, "flash_wgmma")
+        if not 0 < wgmma_ms == flash_ms:
+            raise AssertionError(f"serve: {name}'s flash kernels ran "
+                                 f"{flash_ms:.3f} ms on the device, "
+                                 f"{wgmma_ms:.3f} ms of it the wgmma body")
         out[name] = {"tokens": n, "wall_ms": wall_ms, "device_ms": dev_ms,
                      "flash_ms": flash_ms,
                      "flash_share_of_device": flash_ms / dev_ms,
@@ -1079,16 +1178,21 @@ def serve_attention_check(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
         vs_plain = float((got.float() - want.float()).abs().max())
         res = attention_error_bound(q, k, v, causal,
                                     {"kernel": got, "plain": want}, tol)
-        out.append({"layer": i, "scores_std": sd,
+        body = kernel.body(q.dtype, q.shape[3])
+        out.append({"layer": i, "body": body, "scores_std": sd,
                     "kernel_vs_plain_max": vs_plain, **res})
         log(f"serve attention layer {i} (S=T={n} H={q.shape[2]} "
-            f"Kv={k.shape[2]} D={q.shape[3]}): scores std {sd:.1f}; "
+            f"Kv={k.shape[2]} D={q.shape[3]}, body {body}): scores std "
+            f"{sd:.1f}; "
             f"max |kernel - plain| {vs_plain:.4g}; against float64: "
             + "; ".join(
                 f"{name} max err {r['max_err']:.4g}, {r['beyond_tol']} "
                 f"elements beyond {tol} * (1 + |o|), err / bound "
                 f"{r['ratio']:.4f}"
                 for name, r in res.items()))
+        if body != "wgmma":
+            raise AssertionError(f"serve attention layer {i}: the {body} "
+                                 "body, not wgmma")
         bad = [name for name, r in res.items() if not r["ratio"] <= 1.0]
         if bad:
             raise AssertionError(f"serve attention layer {i}: {bad} beyond "
@@ -1293,8 +1397,8 @@ def main() -> int:
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms")
     line = {"kernels": [{kk: k[kk] for kk in keys} for k in kernels]}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,

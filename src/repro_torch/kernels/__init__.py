@@ -89,6 +89,7 @@ class CudaKernel:
         self.source = Path(source)
         self.symbols = dict(symbols)
         self._lib = None
+        self._fns: Dict[str, ctypes._CFuncPtr] = {}  # bound at load
         self.build_log = ""
         self._lock = threading.Lock()  # lock-name: kernel-build blocking-ok
         self._count_lock = threading.Lock()  # lock-name: kernel-count
@@ -120,23 +121,39 @@ class CudaKernel:
         return so
 
     def lib(self) -> ctypes.CDLL:
+        """The loaded library, built first if need be; its entry points
+        are bound once, here (``_fns`` is filled before ``_lib`` is set,
+        so a reader that sees ``_lib`` sees them)."""
+        lib = self._lib
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self.compile()))
+                fns = {}
                 for sym, argtypes in self.symbols.items():
                     fn = getattr(lib, sym)
                     fn.argtypes = list(argtypes)
                     fn.restype = ctypes.c_int
+                    fns[sym] = fn
+                self._fns = fns
                 self._lib = lib
             return self._lib
 
     # ---------------------------------------------------------- launching
     def launch(self, symbol: str, device: torch.device, *args) -> None:
         """Call one C entry point on ``device``'s current stream (passed
-        last), count the launch, and raise on a refused launch."""
-        fn = getattr(self.lib(), symbol)
-        with torch.cuda.device(device):
+        last), count the launch, and raise on a refused launch.  The
+        device is entered only when it is not already current."""
+        if self._lib is None:
+            self.lib()
+        fn = self._fns[symbol]
+        idx = device.index
+        if idx is None or idx == torch.cuda.current_device():
             err = fn(*args, _stream(device))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, _stream(device))
         with self._count_lock:
             self._launches += 1
         if err != 0:

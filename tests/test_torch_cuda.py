@@ -4,7 +4,7 @@ same feed on the CPU, and a 2-layer serve on the card against the CPU.  Every te
 without a CUDA device; this file imports neither jax nor ``repro``, so it
 runs on a machine that has only PyTorch:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -221,12 +221,24 @@ def test_small_feed_on_card_equals_cpu(card):
     np.testing.assert_array_equal(on_card["top"], on_cpu["top"])
 
 
-# (B, S, T, H, Kv, D, causal): G in {1, 4, 7}; D = 72 takes the CUDA-core
-# body in bf16; S < T causal is aligned top-left
+# (B, S, T, H, Kv, D, causal): G in {1, 4, 7}; S < T causal is aligned
+# top-left; S and T off the wgmma body's 128-row and 64-key tiles, one row
+# and one key, non-causal S > T, B = 2 with G = 7
 FLASH_CASES = [(2, 300, 300, 8, 8, 64, True), (1, 333, 333, 16, 4, 112, True),
                (1, 200, 200, 14, 2, 128, True), (1, 100, 300, 8, 2, 64, True),
                (1, 200, 520, 14, 2, 128, False), (1, 130, 130, 8, 2, 72, True),
-               (3, 1, 1, 4, 4, 16, True), (1, 65, 1, 4, 1, 32, False)]
+               (3, 1, 1, 4, 4, 16, True), (1, 65, 1, 4, 1, 32, False),
+               (1, 1000, 1000, 14, 2, 128, True),
+               (1, 1000, 1000, 8, 2, 64, True),
+               (1, 1, 1, 7, 1, 128, True), (1, 1, 1, 4, 4, 64, True),
+               (1, 100, 300, 14, 2, 128, True),
+               (1, 200, 520, 8, 4, 64, False),
+               (2, 333, 333, 56, 8, 128, True),
+               (2, 257, 129, 14, 2, 64, False)]
+# the body each bf16 head dim of FLASH_CASES takes; float32 takes the
+# CUDA-core body at every D
+BF16_BODY = {64: "wgmma", 128: "wgmma", 16: "mma_sync", 32: "mma_sync",
+             112: "mma_sync", 72: "cuda_core"}
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
@@ -234,6 +246,8 @@ FLASH_CASES = [(2, 300, 300, 8, 8, 64, True), (1, 333, 333, 16, 4, 112, True),
 @pytest.mark.parametrize("b,s,t,h,kv,d,causal", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(card, dtype, tol, b, s, t, h,
                                               kv, d, causal):
+    want_body = BF16_BODY[d] if dtype == torch.bfloat16 else "cuda_core"
+    assert fa_kernel.body(dtype, d) == want_body
     g = torch.Generator(device=card).manual_seed(s * t + d)
     q = torch.randn(b, s, h, d, generator=g, device=card).to(dtype)
     k = torch.randn(b, t, kv, d, generator=g, device=card).to(dtype)
@@ -242,6 +256,44 @@ def test_flash_attention_kernel_matches_plain(card, dtype, tol, b, s, t, h,
     want = fa_ref.flash_attention(q, k, v, causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_body_takes_noncontiguous_views(card, d):
+    """q sliced out of a wider last dim and k a transposed (B, Kv, T, D)
+    tensor go to TMA in place; v with a strided D is copied first."""
+    g = torch.Generator(device=card).manual_seed(d)
+    q = torch.randn(2, 300, 14, d + 64, generator=g,
+                    device=card).bfloat16()[..., :d]
+    k = torch.randn(2, 2, 300, d, generator=g,
+                    device=card).bfloat16().transpose(1, 2)
+    v = torch.randn(2, 300, 2, 2 * d, generator=g,
+                    device=card).bfloat16()[..., ::2]
+    assert not (q.is_contiguous() or k.is_contiguous()
+                or v.is_contiguous())
+    got = fa_kernel.flash_attention(q, k, v, True)
+    want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_serving_shape_takes_wgmma_and_counts(card):
+    """deepseek-coder-33b's 1,536-token prefill attention: the wgmma body,
+    one launch per call through ops, within 2e-2 of the plain version."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device=card).manual_seed(1536)
+    q = torch.randn(1, 1536, 56, 128, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(1, 1536, 8, 128, generator=g, device=card).bfloat16()
+            for _ in range(2))
+    assert fa_kernel.body(q.dtype, q.shape[-1]) == "wgmma"
+    reset_launch_counts()
+    got = fa_ops.flash_attention(q, k, v, True)
+    assert launch_counts()["flash_attention"] == 1
+    want = fa_ref.flash_attention(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_flash_attention_routing_on_card(card):

@@ -65,6 +65,12 @@ def test_plain_matches_pallas_kernel(dtype, b, s, h, kv, d):
     (1, 128, 256, 2, 2, 64),     # S < T: top-left causal alignment
     (1, 96, 160, 14, 2, 16),     # G = 7, neither length a tile multiple
     (2, 256, 256, 8, 2, 64),
+    # the CUDA kernel's wgmma body's edges: one row and one key, S < T and
+    # neither a tile multiple, B = 2 with G = 7 past one 128-row tile
+    (1, 1, 1, 7, 1, 128),
+    (1, 100, 300, 14, 2, 128),
+    (1, 200, 520, 8, 4, 64),
+    (2, 130, 130, 14, 2, 64),
 ])
 def test_plain_matches_reference_oracle(dtype, causal, b, s, t, h, kv, d):
     rng = np.random.default_rng(b * s + t + h)
