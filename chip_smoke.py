@@ -12,7 +12,11 @@ Phases, each fatal on failure:
      kernel, plain version and the one PyTorch call computing the same
      function (none for segment_topk; scaled_dot_product_attention for
      flash_attention): each call's time, and for kernels and library calls
-     the device's time per launch over back-to-back launches; flash
+     the device's time per launch over back-to-back launches; segment_sum
+     and segment_topk also at the read path's shapes (one eager unit, a
+     merged unit, a batched scan, 2^22 rows), and one profiled segment_topk
+     call each at 2,048 and 2^20 rows must show at most 1 and 2 kernels
+     and no memset; flash
      attention logs the body (wgmma, mma_sync, cuda_core) of every case,
      and at the serving shape must take the wgmma body, held and timed
      beside the mma_sync body it replaced;
@@ -29,6 +33,8 @@ Phases, each fatal on failure:
      country) each bit-equal to the CPU on the same snapshot, and queries
      during a throttled feed with repair, compaction and rolling reference
      updates, which must converge.  Every top-k must take the kernel;
+     the aggregation dispatches by (op, row bucket) are printed, each
+     bucket's count weighted by the kernel's device time at that size;
   8. LM serving: deepseek-coder-33b at full width cut to 4 of 62 layers,
      bf16 parameters from a seed, 12 requests of 256-1,536 prompt tokens
      and 32 new tokens each through ServingEngine on 4 slots; every
@@ -255,36 +261,69 @@ def check_radius_join(dev, rng):
             "max_abs_err": err, **out[8], "k1": out[1]}
 
 
+# (tag, rows, segments, real groups, dtype): the feed's Q6 count width
+# (1,000,192 persons into 16,385 district x ethnicity segments, every
+# dtype), the batched read path's sum/mean widths (2^20 rows into S = 256,
+# with 256 and with 6 real groups) and one eager unit (2,048 rows, S = 128);
+# "count" is the count mode (no values: one per row)
+SUM_CASES = [("feed", 1_000_192, 16_385, 16_385, dt)
+             for dt in ("int32", "int64", "float32", "float64")]
+SUM_CASES += [("feed", 1_000_192, 16_385, 16_385, "count")]
+SUM_CASES += [(f"batched g={g}", 1 << 20, 256, g, dt)
+              for g in (256, 6) for dt in ("int64", "float64")]
+SUM_CASES += [("eager", 2048, 128, 6, dt) for dt in ("int32", "count")]
+SUM_HEAD = "feed int32"
+
+
 def check_segment_sum(dev, rng):
+    """The kernel (count mode through ``kernel.segment_count``) against
+    its plain version at SUM_CASES, 2 % of rows dropped (segments -2, -1,
+    S and S + 1); integers exact, floats within 1e-6 (float32) or 1e-12
+    (float64) of each segment's sum of |v|: atomics add in another order.
+    Timed beside ``index_add_`` into zeros on the same inputs."""
     from repro_torch.kernels.segment_reduce import kernel, ref
-    r, s = 1_000_192, 16_385
-    seg = rng.integers(-2, s + 2, r).astype(np.int32)   # some dropped
-    st = t(seg, dev)
-    keep = (seg >= 0) & (seg < s)
     rows = {}
-    for dt in (np.int32, np.int64, np.float32, np.float64):
-        if np.issubdtype(dt, np.integer):
-            v = rng.integers(-1000, 1000, r).astype(dt)
+    for where, r, s, groups, dt in SUM_CASES:
+        seg = rng.integers(0, groups, r).astype(np.int32)
+        drop = rng.random(r) < 0.02
+        seg[drop] = rng.choice([-2, -1, s, s + 1], int(drop.sum()))
+        st = t(seg, dev)
+        keep = (seg >= 0) & (seg < s)
+        count = dt == "count"
+        ndt = np.dtype("int32" if count else dt)
+        if count:
+            v = np.ones(r, np.int32)
+        elif np.issubdtype(ndt, np.integer):
+            v = rng.integers(-1000, 1000, r).astype(ndt)
         else:
-            v = rng.normal(size=r).astype(dt)
+            v = rng.normal(size=r).astype(ndt)
         vt = t(v, dev)
-        got = kernel.segment_sum(vt, st, s)
+        if count:
+            def run():
+                return kernel.segment_count(st, s)
+        else:
+            def run():
+                return kernel.segment_sum(vt, st, s)
+        got = run()
         want = ref.segment_sum(vt, st, s)
         torch.cuda.synchronize()
+        tag = f"{where} {dt}"
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"segment_sum[{tag}] returned {got.dtype} "
+                                 f"{tuple(got.shape)}")
         err = float((got - want).abs().max())
-        if np.issubdtype(dt, np.integer):
+        if np.issubdtype(ndt, np.integer):
             if err != 0:
-                raise AssertionError(f"segment_sum {dt.__name__} not exact")
+                raise AssertionError(f"segment_sum[{tag}] not exact")
         else:
-            # atomics add in another order than the plain version
-            rel = 1e-6 if dt == np.float32 else 1e-12
+            rel = 1e-6 if ndt == np.float32 else 1e-12
             scale = np.bincount(seg[keep], np.abs(v[keep]).astype(
                 np.float64), s)
             diff = (got - want).abs().double().cpu().numpy()
             if not np.all(diff <= rel * scale + 1e-30):
-                raise AssertionError(f"segment_sum {dt.__name__} beyond "
-                                     f"{rel} * sum|v|")
-        ms = time_ms(lambda: kernel.segment_sum(vt, st, s))
+                raise AssertionError(f"segment_sum[{tag}] beyond {rel} * "
+                                     "sum|v|")
+        ms = time_ms(run)
         plain = time_ms(lambda: ref.segment_sum(vt, st, s))
         lt = st.long().clamp(0, s - 1)
         lv = torch.where((st >= 0) & (st < s), vt, torch.zeros_like(vt))
@@ -292,96 +331,171 @@ def check_segment_sum(dev, rng):
         def library():
             torch.zeros(s, dtype=vt.dtype, device=dev).index_add_(0, lt, lv)
         lib = time_ms(library)
-        dev_ms = device_ms(lambda: kernel.segment_sum(vt, st, s))
+        dev_ms = device_ms(run)
         lib_dev = device_ms(library)
-        isz = np.dtype(dt).itemsize
-        b_ms, b_by = bound(r * (isz + 4) + s * isz, float(r))
-        log(f"kernel segment_sum[{np.dtype(dt).name}] R={r} S={s}: "
+        isz = ndt.itemsize
+        # count mode reads no values
+        b_ms, b_by = bound(r * ((0 if count else isz) + 4) + s * isz,
+                           float(r))
+        log(f"kernel segment_sum[{tag}] R={r} S={s} groups={groups}: "
             f"max_abs_err={err:.3g} ms={ms:.4f} device_ms={dev_ms:.4f} "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} "
             f"library_device_ms={lib_dev:.4f} (index_add_) "
             f"bound_ms={b_ms:.6f} ({b_by})")
-        rows[np.dtype(dt).name] = {"max_abs_err": err, "ms": ms,
-                                   "device_ms": dev_ms, "plain_ms": plain,
-                                   "library_ms": lib,
-                                   "library_device_ms": lib_dev,
-                                   "bound_ms": b_ms, "bound_by": b_by}
-    head = rows["int32"]
+        rows[tag] = {"rows": r, "segments": s, "groups": groups,
+                     "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "library_device_ms": lib_dev, "bound_ms": b_ms,
+                     "bound_by": b_by}
     return {"name": "segment_sum", "route": "cuda",
             "source": ("src/repro_torch/kernels/segment_reduce/csrc/"
                        "segment_reduce.cu"),
             "replaces": "src/repro/kernels/segment_reduce/kernel.py:71",
-            **head,
+            **rows[SUM_HEAD],
             "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
-            "by_dtype": rows}
+            "by_case": rows}
 
 
 TOPK_ROWS = 1 << 20          # the bucket of a batched scan over phase 7
-TOPK_HEAD = ("ties", 256, 16)  # phase 7(c)'s shape: group_by("country")
+TOPK_HEAD = "ties S=256 k=16"  # phase 7(c)'s shape: group_by("country")
+# (values, rows, S, real groups, k) at the read path's other shapes: one
+# eager unit of group_by("safety_level") (6 groups of S = 128, top-3), one
+# unit of phase 7(c), one merged unit, and 2^22 rows, more than the
+# grid's shared memory holds at once
+TOPK_SHAPES = [("ties", 2048, 128, 6, 3), ("ties", 2048, 256, 256, 16),
+               ("ties", 32_768, 256, 256, 16),
+               ("ties", 1 << 22, 256, 256, 16)]
 
 
 def check_segment_topk(dev, rng):
     """Bit-equal to the plain version at R = 2^20 rows, S in {128, 256,
     2048}, k in {3, 16}, for dense ties (values -1..5) and few ties
-    (values in [0, 2^31)), 5 % of rows dropped (seg = S); plus the
-    group_by("safety_level") shape: 6 real groups of S = 128, and int64
-    values in [-2^40, 2^40), which rank clipped to [0, 2^31)."""
+    (values in [0, 2^31)), 5 % of rows dropped (seg = S); the
+    group_by("safety_level") shape (6 real groups of S = 128); int64 values
+    in [-2^40, 2^40), which rank clipped to [0, 2^31); and TOPK_SHAPES."""
     from repro_torch.kernels.segment_topk import kernel, ref
+    draws = {"ties": lambda r: rng.integers(-1, 6, r).astype(np.int32),
+             "wide": lambda r: rng.integers(0, 2**31, r).astype(np.int32),
+             "int64": lambda r: rng.integers(-2**40, 2**40, r)}
     r = TOPK_ROWS
-    draws = {"ties": lambda: rng.integers(-1, 6, r).astype(np.int32),
-             "wide": lambda: rng.integers(0, 2**31, r).astype(np.int32),
-             "int64": lambda: rng.integers(-2**40, 2**40, r)}
-    cases = [(vn, s, s) for vn in ("ties", "wide") for s in (128, 256, 2048)]
-    cases += [("ties", 128, 6), ("int64", 256, 256)]
+    cases = [(vn, r, s, s, k) for vn in ("ties", "wide")
+             for s in (128, 256, 2048) for k in (3, 16)]
+    cases += [("ties", r, 128, 6, k) for k in (3, 16)]
+    cases += [("int64", r, 256, 256, k) for k in (3, 16)]
+    cases += TOPK_SHAPES
     rows = {}
-    for vname, s, groups in cases:
-        vals = draws[vname]()
+    for vname, r, s, groups, k in cases:
+        vals = draws[vname](r)
         seg = rng.integers(0, groups, r).astype(np.int32)
         seg[rng.random(r) < 0.05] = s                      # dropped
         vt, st = t(vals, dev), t(seg, dev)
-        for k in (3, 16):
-            got = kernel.segment_topk_idx(vt, st, s, k)
-            want = ref.segment_topk_idx(vt, st, s, k)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise AssertionError(f"segment_topk {vname} S={s} "
-                                     f"groups={groups} k={k}: {bad} "
-                                     "slots differ from the plain version")
-            err = float((got.long() - want.long()).abs().max())
-            ms = time_ms(lambda: kernel.segment_topk_idx(vt, st, s, k))
-            dev_ms = device_ms(
-                lambda: kernel.segment_topk_idx(vt, st, s, k), n=10)
-            plain = time_ms(lambda: ref.segment_topk_idx(vt, st, s, k),
-                            reps=5)
-            b_ms, b_by = bound(r * (vals.itemsize + 4) + s * k * 4,
-                               float(r))
-            tag = f"{vname} S={s}" + (f" groups={groups}"
-                                      if groups != s else "") + f" k={k}"
-            log(f"kernel segment_topk[{tag}] R={r}: max_abs_err={err} "
-                f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
-                f"library_ms=null bound_ms={b_ms:.6f} ({b_by}) "
-                f"filled={int((got >= 0).sum())}")
-            rows[tag] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                         "plain_ms": plain, "library_ms": None,
-                         "library_device_ms": None, "bound_ms": b_ms,
-                         "bound_by": b_by}
+        got = kernel.segment_topk_idx(vt, st, s, k)
+        want = ref.segment_topk_idx(vt, st, s, k)
+        torch.cuda.synchronize()
+        tag = f"{vname} S={s}" + (f" groups={groups}"
+                                  if groups != s else "") + f" k={k}"
+        if r != TOPK_ROWS:
+            tag += f" R={r}"
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"segment_topk[{tag}]: {bad} slots differ "
+                                 "from the plain version")
+        err = float((got.long() - want.long()).abs().max())
+        ms = time_ms(lambda: kernel.segment_topk_idx(vt, st, s, k))
+        dev_ms = device_ms(lambda: kernel.segment_topk_idx(vt, st, s, k),
+                           n=10)
+        plain = time_ms(lambda: ref.segment_topk_idx(vt, st, s, k), reps=5)
+        b_ms, b_by = bound(r * (vals.itemsize + 4) + s * k * 4, float(r))
+        log(f"kernel segment_topk[{tag}] R={r}: max_abs_err={err} "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms=null bound_ms={b_ms:.6f} ({b_by}) "
+            f"filled={int((got >= 0).sum())}")
+        rows[tag] = {"rows": r, "max_abs_err": err, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain,
+                     "library_ms": None, "library_device_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by}
     # no single PyTorch call computes a per-segment top-k; the stable sort
     # of the composite key, the core of the plain version, for scale
+    r = TOPK_ROWS
     comp = torch.randint(0, 2**40, (r,), device=dev)
     sort_ms = time_ms(lambda: torch.sort(comp, stable=True))
     sort_dev = device_ms(lambda: torch.sort(comp, stable=True), n=10)
     log(f"segment_topk scale: torch.sort(int64 composite, stable=True) "
         f"R={r}: {sort_ms:.4f} ms, device {sort_dev:.4f} ms")
-    vname, s, k = TOPK_HEAD
     return {"name": "segment_topk", "route": "cuda",
             "source": ("src/repro_torch/kernels/segment_topk/csrc/"
                        "segment_topk.cu"),
             "replaces": "src/repro/kernels/segment_topk/kernel.py:108",
-            **rows[f"{vname} S={s} k={k}"],
+            **rows[TOPK_HEAD],
             "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
             "stable_sort_ms": sort_ms, "stable_sort_device_ms": sort_dev,
             "by_case": rows}
+
+
+# most device operations one segment_topk call may issue, by rows: one
+# launch where the rows fit one block, two otherwise, and no memset
+TOPK_LAUNCH_SHAPES = [(2048, 128, 3, 1), (TOPK_ROWS, 256, 16, 2)]
+
+
+def check_topk_launches(dev, rng):
+    """One segment_topk call per TOPK_LAUNCH_SHAPES under torch.profiler:
+    fails if its device events are more kernels than allowed, or any
+    memset or copy.  Returns each shape's device events by name."""
+    from repro_torch.kernels.segment_topk import kernel
+    out = {}
+    for r, s, k, most in TOPK_LAUNCH_SHAPES:
+        vt = t(rng.integers(-1, 6, r).astype(np.int32), dev)
+        st = t(rng.integers(0, s, r).astype(np.int32), dev)
+        kernel.segment_topk_idx(vt, st, s, k)
+        torch.cuda.synchronize()
+        prof, _ = profiled(lambda: kernel.segment_topk_idx(vt, st, s, k))
+        events = {ev.key: ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA}
+        ops = sum(events.values())
+        other = [n for n in events if "memset" in n.lower()
+                 or "memcpy" in n.lower()]
+        log(f"segment_topk launches R={r} S={s} k={k}: {ops} device "
+            f"events {events} (at most {most} kernels, no memset)")
+        out[f"R={r}"] = events
+        if ops > most or other or ops == 0:
+            raise AssertionError(f"segment_topk at R={r} issued {events} "
+                                 f"on the device, not at most {most} "
+                                 "kernels and no memset")
+    return out
+
+
+def weigh_buckets(dev, hist, rng):
+    """The read path's aggregation dispatches on the card, from
+    ``dispatch.bucket_stats()``: per (op, row bucket) its count and the
+    kernel's device ms per launch at that many rows, at phase 3's head
+    shapes (segment_sum: int64 into S = 256; segment_topk: top-16 of
+    S = 256, values -1..5), and their product."""
+    from repro_torch.kernels.segment_reduce import kernel as sr
+    from repro_torch.kernels.segment_topk import kernel as st
+    out, total = [], {}
+    for (op, rows), count in sorted(hist.items()):
+        if op not in ("segment_sum", "segment_topk"):
+            continue
+        seg = t(rng.integers(0, 256, rows).astype(np.int32), dev)
+        if op == "segment_sum":
+            v = t(rng.integers(-1000, 1000, rows), dev)
+
+            def run():
+                sr.segment_sum(v, seg, 256)
+        else:
+            v = t(rng.integers(-1, 6, rows).astype(np.int32), dev)
+
+            def run():
+                st.segment_topk_idx(v, seg, 256, 16)
+        ms = device_ms(run, n=10)
+        out.append({"op": op, "rows": rows, "launches": count,
+                    "device_ms": ms, "device_ms_total": ms * count})
+        total[op] = total.get(op, 0.0) + ms * count
+        log(f"read: {op} at {rows} rows: {count} launches x {ms:.4f} ms "
+            f"= {ms * count:.4f} ms on the device")
+    log(f"read: aggregation kernels' device ms per read path, weighted by "
+        f"the bucket histogram: {total}")
+    return {"by_bucket": out, "total_ms": total}
 
 
 # (B, S, T, H, Kv, D, causal, dtype): G = H / Kv in {1, 4, 7}, D in {64,
@@ -1306,6 +1420,7 @@ def main() -> int:
     kernels = [check_sorted_probe(dev, rng), check_radius_join(dev, rng),
                check_segment_sum(dev, rng), check_segment_topk(dev, rng),
                check_flash_attention(dev, rng)]
+    kernels[3]["launch_profile"] = check_topk_launches(dev, rng)
     # phase 4
     t0 = time.perf_counter()
     store = RefStore()
@@ -1340,11 +1455,16 @@ def main() -> int:
     # phase 7, the read path, from counts and path stats of 0: its top-k
     # launches must all be the kernel path's, and the card must take no
     # plain version (the CPU runs beside it record "reference")
+    from repro_torch.core.enrich import dispatch
     reset_launch_counts()
     reset_path_stats()
+    dispatch.reset_bucket_stats()
     read = read_path(dev, store, out_dir)
     rcounts = launch_counts()
     paths = path_stats()
+    hist = dispatch.bucket_stats()
+    log("read: kernel dispatches by (op, row bucket): " + ", ".join(
+        f"{op}@{b}: {n}" for (op, b), n in sorted(hist.items())))
     kernel_path = paths.get(("segment_topk", "kernel"), 0)
     card_plain = paths.get(("segment_topk", "plain_on_card"), 0)
     log(f"read: launches {rcounts}; segment_topk kernel-path dispatches "
@@ -1355,6 +1475,15 @@ def main() -> int:
                              "kernel for every top-k")
     if rcounts["segment_reduce"] == 0:
         raise AssertionError("the read path did not run segment_sum")
+    sum_hits = sum(n for (op, _), n in hist.items() if op == "segment_sum")
+    topk_hits = sum(n for (op, _), n in hist.items() if op == "segment_topk")
+    if (sum_hits, topk_hits) != (rcounts["segment_reduce"],
+                                 rcounts["segment_topk"]):
+        raise AssertionError(f"bucket histogram ({sum_hits} sums, "
+                             f"{topk_hits} top-k) != launches {rcounts}")
+    read["bucket_histogram"] = [{"op": op, "rows": b, "dispatches": n}
+                                for (op, b), n in sorted(hist.items())]
+    read["aggregation_device_ms"] = weigh_buckets(dev, hist, rng)
     # phase 8, serving, from counts and path stats of 0: every admission
     # runs the flash kernel once per layer in prefill and once in the
     # first-token apply, and no attention takes the plain version

@@ -1,0 +1,116 @@
+"""Time the port from two source trees in turns on one CUDA card.
+
+    python3 scripts/ab_trees.py --base DIR [--what kernels|paths|both]
+                                [--out FILE]
+
+DIR is another checkout of this repository (for example an unpacked
+``git archive`` of the parent commit).  Turns run in the order base, this,
+this, base, each in its own process: this checkout's ``chip_smoke.py``
+functions drive that tree's ``src/repro_torch`` (kernels built from its
+sources into its own build directory).
+
+  kernels  phase 3's segment_sum and segment_topk checks at every case
+           (each result held to the plain version, then timed), and the
+           profiled segment_topk launch check, which is reported and does
+           not fail the turn;
+  paths    the feed (``run_feed``: 20 x 6,720 tweets at scale 1.0) and
+           serving (``serve_path``: deepseek-coder-33b at full width, 4
+           layers, 12 requests).
+
+A tree whose segment_sum wrapper has no count mode counts through a column
+of ones, as its dispatch layer did.  Prints the card's name and power
+limit, then one JSON line per turn; all turns also go to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def child(tree: str, what: str) -> dict:
+    sys.path[:0] = [HERE, os.path.join(tree, "src")]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build_all
+    from repro_torch.kernels.segment_reduce import kernel as srk
+    if not hasattr(srk, "segment_count"):
+        srk.segment_count = lambda seg, s: srk.segment_sum(
+            torch.ones(seg.shape, dtype=torch.int32, device=seg.device),
+            seg, s)
+    build_all()
+    dev = torch.device("cuda", 0)
+    out = {}
+    if what in ("kernels", "both"):
+        rng = np.random.default_rng(2019)
+        out["segment_sum"] = cs.check_segment_sum(dev, rng)["by_case"]
+        out["segment_topk"] = cs.check_segment_topk(dev, rng)["by_case"]
+        try:
+            out["topk_launches"] = cs.check_topk_launches(dev, rng)
+        except AssertionError as e:
+            out["topk_launches"] = str(e)
+    if what in ("paths", "both"):
+        from repro_torch.configs import get_config
+        from repro_torch.core import RefStore
+        from repro_torch.core.enrich import queries as Q
+        from repro_torch.models import api
+        store = RefStore()
+        Q.make_reference_tables(store, scale=1.0, seed=cs.SEED_TABLES)
+        _, out["feed"] = cs.run_feed(dev, store)
+        cfg = get_config(cs.SERVE_ARCH).replace(num_layers=cs.SERVE_LAYERS)
+        params = api.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(cs.SERVE_SEED))
+        cs.serve_warmup(cfg, params, dev)
+        out["serve"] = cs.serve_path(cfg, params, dev)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", required=True,
+                    help="the other checkout's root")
+    ap.add_argument("--what", default="both",
+                    choices=("kernels", "paths", "both"))
+    ap.add_argument("--out", default=None, help="JSON file of all turns")
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        res = child(args.child, args.what)
+        print("RESULT " + json.dumps(res), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    trees = {"base": os.path.abspath(args.base), "this": HERE}
+    turns = []
+    for name in ("base", "this", "this", "base"):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--base", args.base, "--what", args.what,
+                            "--child", trees[name]],
+                           capture_output=True, text=True, timeout=1800)
+        found = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if p.returncode or not found:
+            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+            return 1
+        turn = {"tree": name, **json.loads(found[0][len("RESULT "):])}
+        turns.append(turn)
+        print(json.dumps(turn), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump({"device": smi, "turns": turns}, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

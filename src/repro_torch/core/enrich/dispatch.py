@@ -148,17 +148,33 @@ def segment_sum(values: Array, seg: Array, num_segments: int,
         return ops._segment_sum_ref(values, seg, num_segments, valid)
     note_path("segment_sum", "kernel")
     _note("segment_sum", bucket_rows(values.shape[0]))
-    seg = seg.to(torch.int32)
-    if valid is not None:
-        # invalid rows route to the dropped overflow segment
-        seg = torch.where(valid, seg, num_segments)
-    return sr_ops.segment_sum(values, seg, num_segments)
+    return sr_ops.segment_sum(values, _segment_ids(seg, num_segments, valid),
+                              num_segments)
 
 
 def segment_count(seg: Array, num_segments: int,
                   valid: Optional[Array] = None) -> Array:
-    ones = torch.ones(seg.shape, dtype=torch.int32, device=seg.device)
-    return segment_sum(ones, seg, num_segments, valid)
+    """Group-by count, (num_segments,) int32, recorded as a segment sum.
+    On the card the kernel's count mode adds one per row: no column of
+    ones is made."""
+    if on_cuda(seg):
+        note_path("segment_sum", "kernel")
+        _note("segment_sum", bucket_rows(seg.shape[0]))
+    else:
+        note_path("segment_sum", "reference")
+    return sr_ops.segment_count(_segment_ids(seg, num_segments, valid),
+                                num_segments)
+
+
+def _segment_ids(seg: Array, num_segments: int,
+                 valid: Optional[Array]) -> Array:
+    """Segment ids as the sum takes them: int32 or int64 as they are (no
+    copy), invalid rows routed to the dropped overflow segment."""
+    if seg.dtype not in (torch.int32, torch.int64):
+        seg = seg.to(torch.int32)
+    if valid is not None:
+        seg = torch.where(valid, seg, num_segments)
+    return seg
 
 
 def segment_topk(values: Array, seg: Array, payload: Array,

@@ -26,6 +26,7 @@ process each.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,9 +45,27 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# Hopper's limits the launch plans are made for: the SMs of an H100 SXM
+# (the default where no card is asked) and the shared memory one block
+# may use (above 48 KB only after cudaFuncSetAttribute)
+SM_COUNT = 132
+SMEM_BYTES = 232_448
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """The whole routing rule: CUDA tensors take the hand kernel."""
     return t.device.type == "cuda"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (read once per device)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def build_dir() -> Path:

@@ -1,5 +1,5 @@
-"""Segment sum routed by device: CUDA tensors take the hand kernel, CPU
-and meta tensors the plain version."""
+"""Segment sum and count routed by device: CUDA tensors take the hand
+kernel, CPU and meta tensors the plain version."""
 
 from __future__ import annotations
 
@@ -14,3 +14,10 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
     if on_cuda(values):
         return kernel.segment_sum(values, seg, num_segments)
     return ref.segment_sum(values, seg, num_segments)
+
+
+def segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows per segment, (num_segments,) int32."""
+    if on_cuda(seg):
+        return kernel.segment_count(seg, num_segments)
+    return ref.segment_count(seg, num_segments)

@@ -18,3 +18,10 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
                       device=values.device)
     out.scatter_add_(0, slot, values)
     return out[:num_segments]
+
+
+def segment_count(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows per segment, (num_segments,) int32; rows with seg outside
+    [0, num_segments) dropped."""
+    ones = torch.ones(seg.shape, dtype=torch.int32, device=seg.device)
+    return segment_sum(ones, seg, num_segments)

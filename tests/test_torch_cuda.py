@@ -70,22 +70,43 @@ def test_radius_join_kernel_equals_plain_bit_for_bit(card, k):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64,
-                                   torch.float32, torch.float64])
-def test_segment_sum_kernel_matches_plain(card, dtype):
+# (case, dtype): 300 uniform segments in every dtype; 6 real groups of
+# 2^20 int64 rows (the shared-memory path under contention); 100,000
+# segments, a table too large for shared memory (the global-atomic path);
+# the count mode through dispatch.segment_count, int64 ids and a mask
+SUM_CASES = [("uniform", dt) for dt in (torch.int32, torch.int64,
+                                        torch.float32, torch.float64)]
+SUM_CASES += [("groups6", torch.int64), ("global", torch.float64),
+              ("count", torch.int32)]
+
+
+@pytest.mark.parametrize("case,dtype", SUM_CASES)
+def test_segment_sum_kernel_matches_plain(card, case, dtype):
+    from repro_torch.core.enrich import dispatch
     rng = np.random.default_rng(3)
-    seg = on(rng.integers(-1, 300, 50_000).astype(np.int32), card)
+    r, s = {"groups6": (1 << 20, 256), "global": (20_000, 100_000)}.get(
+        case, (50_000, 299))
+    groups = 6 if case == "groups6" else s + 1
+    seg = rng.integers(-1, groups, r).astype(np.int32)
+    if case == "count":
+        segl = on(seg.astype(np.int64), card)
+        valid = on(rng.random(r) < 0.9, card)
+        got = dispatch.segment_count(segl, s, valid)
+        want = dispatch.segment_count(segl.cpu(), s, valid.cpu())
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+        return
+    seg = on(seg, card)
     if dtype.is_floating_point:
-        v = on(rng.normal(size=50_000), card).to(dtype)
+        v = on(rng.normal(size=r), card).to(dtype)
     else:
-        v = on(rng.integers(-2**20, 2**20, 50_000), card).to(dtype)
-    got = sr_kernel.segment_sum(v, seg, 299)
-    want = sr_ref.segment_sum(v, seg, 299)
+        v = on(rng.integers(-2**20, 2**20, r), card).to(dtype)
+    got = sr_kernel.segment_sum(v, seg, s)
+    want = sr_ref.segment_sum(v, seg, s)
     assert got.dtype == dtype
     if dtype.is_floating_point:
         # atomics add in another order: 1e-6 (f32) / 1e-12 (f64) of sum|v|
         rel = 1e-6 if dtype == torch.float32 else 1e-12
-        scale = sr_ref.segment_sum(v.abs().double(), seg, 299)
+        scale = sr_ref.segment_sum(v.abs().double(), seg, s)
         assert torch.all((got.double() - want.double()).abs()
                          <= rel * scale + 1e-30)
     else:
@@ -111,13 +132,29 @@ def _topk_case(name, rng):
     if name == "int64":                  # negatives and values past 2^31
         return (rng.integers(-2**40, 2**40, r),
                 rng.integers(0, 128, r).astype(np.int32), 128)
+    if name == "eager_unit":             # group_by("safety_level"): 2,048
+        return (rng.integers(-1, 6, 2048).astype(np.int32),   # rows, 6 of
+                rng.integers(0, 6, 2048).astype(np.int32), 128)  # S = 128
+    if name == "past_one_pass":          # more rows than the grid buckets
+        n = 3_000_000                    # at once: several passes a block
+        return (rng.integers(-1, 6, n).astype(np.int32),
+                rng.integers(0, 256, n).astype(np.int32), 256)
+    if name == "one_big_segment":        # 2^20 rows in one segment
+        n = 1 << 20
+        return (rng.integers(0, 2**31 - 1, n).astype(np.int32),
+                np.zeros(n, np.int32), 1)
+    if name == "all_equal_2048":         # S = 2,048, ranks by row alone
+        return (np.full(r, 4, np.int32),
+                rng.integers(0, 2048, r).astype(np.int32), 2048)
     return (rng.integers(0, 2**31 - 1, r).astype(np.int32),  # "wide"
             rng.integers(0, 2048, r).astype(np.int32), 2048)
 
 
 @pytest.mark.parametrize("k", [1, 3, 16])
 @pytest.mark.parametrize("case", ["one_segment", "all_equal", "negatives",
-                                  "empty_and_dropped", "wide", "int64"])
+                                  "empty_and_dropped", "wide", "int64",
+                                  "eager_unit", "past_one_pass",
+                                  "one_big_segment", "all_equal_2048"])
 def test_segment_topk_kernel_equals_plain(card, case, k):
     rng = np.random.default_rng(k)
     vals, seg, s = _topk_case(case, rng)

@@ -301,8 +301,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_hp_kernel.sorted_probe(x, x)
     with pytest.raises(ValueError, match="CUDA"):
         t_sr_kernel.segment_sum(x, x.int(), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_sr_kernel.segment_sum(x, x, 2)            # int64 ids
+    with pytest.raises(ValueError, match="CUDA"):
+        t_sr_kernel.segment_count(x.int(), 2)
     f = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):
         t_sj_kernel.radius_join(f, f, f, f, 1.0, 2)
     with pytest.raises(ValueError, match="CUDA"):
         t_st_kernel.segment_topk_idx(x.int(), x.int(), 2, 3)
+    with pytest.raises(ValueError, match="CUDA"):    # the envelope's edge
+        t_st_kernel.segment_topk_idx(x.int(), x.int(), 2048, 16)
