@@ -12,11 +12,17 @@ Phases, each fatal on failure:
      kernel, plain version and the one PyTorch call computing the same
      function (none for segment_topk; scaled_dot_product_attention for
      flash_attention): each call's time, and for kernels and library calls
-     the device's time per launch over back-to-back launches; segment_sum
-     and segment_topk also at the read path's shapes (one eager unit, a
-     merged unit, a batched scan, 2^22 rows), and one profiled segment_topk
-     call each at 2,048 and 2^20 rows must show at most 1 and 2 kernels
-     and no memset; flash
+     the device's time per launch over back-to-back launches, beside an
+     empty kernel's (the launch floor); sorted_probe at the feed's,
+     Q6's and Q5's shapes; radius_join at Q4 (k = 8 and k = 1), Q5/Q7
+     (k = 3), clustered references, a radius covering the whole table and
+     probes on the radius, each bit-equal, each call captured in a CUDA
+     graph whose nodes must be at most 4 kernels and no memset or copy,
+     and one profiled call's kernels and their device ms logged;
+     segment_sum and segment_topk also at the read path's shapes (one
+     eager unit, a merged unit, a batched scan, 2^22 rows), and one
+     segment_topk call each at 2,048 and 2^20 rows, captured in a graph,
+     must issue at most 1 and 2 kernels and no memset or copy; flash
      attention logs the body (wgmma, mma_sync, cuda_core) of every case,
      and at the serving shape must take the wgmma body, held and timed
      beside the mma_sync body it replaced;
@@ -166,99 +172,322 @@ def profiled(fn):
     return prof, wall * 1e3
 
 
+def profiled_seen(fn, tries: int = 3):
+    """``profiled``, taken again (up to ``tries`` times in all) while the
+    profile shows no device event at all: profiled kernel calls have come
+    back empty on some runs, with no cause found."""
+    for _ in range(tries):
+        prof, wall_ms = profiled(fn)
+        if any(ev.device_type == torch.autograd.DeviceType.CUDA
+               for ev in prof.key_averages()):
+            break
+        log("profile showed no device event; profiling again")
+    return prof, wall_ms
+
+
+def device_events(fn) -> dict:
+    """The device events of one profiled call of ``fn`` (profiled_seen):
+    {name: {"count", "device_ms"}}, for the log (the launch checks read
+    ``graph_ops``); {} if no profile showed one."""
+    prof, _ = profiled_seen(fn)
+    return {ev.key: {"count": ev.count,
+                     "device_ms": ev.self_device_time_total / 1e3}
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+# CUgraphNodeType (cuda.h) by value
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                    "wait_event", "event_record", "ext_semas_signal",
+                    "ext_semas_wait", "mem_alloc", "mem_free",
+                    "batch_mem_op", "conditional")
+
+
+def graph_ops(fn) -> dict:
+    """The device operations one call of ``fn`` issues, by kind
+    ({"kernel": n, "memset": m, ...}): the nodes of a CUDA graph captured
+    around the call, read through the CUDA driver.  Exact, and needs no
+    profiler; a call that synchronises with the host cannot be captured
+    and raises here."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    ops: dict = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = (GRAPH_NODE_TYPES[kind.value]
+                if 0 <= kind.value < len(GRAPH_NODE_TYPES)
+                else f"type {kind.value}")
+        ops[name] = ops.get(name, 0) + 1
+    return ops
+
+
+def check_ops(what: str, ops: dict, most: int) -> None:
+    """Fails unless ``ops`` (from graph_ops) is 1 to ``most`` kernels and
+    no other operation (no memset, no copy)."""
+    kernels = ops.get("kernel", 0)
+    if not 0 < kernels <= most or set(ops) != {"kernel"}:
+        raise AssertionError(f"{what} issued {ops} on the device, not 1 "
+                             f"to {most} kernels and no memset or copy")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def launch_floor_ms() -> float:
+    """Device ms per launch of an empty kernel (torch.cuda._sleep(0): one
+    thread that returns at once), back-to-back: the least a launch costs
+    on this card, beside which the short kernels are read."""
+    return device_ms(lambda: torch.cuda._sleep(0), n=100)
+
+
+# (tag, probes, key rows, real keys): the feed's and the read path's Q1
+# probe of safety_levels (also Q6's district ids), Q6's income join and
+# Q5's suspicious_names join (1,000,000 names, not on a path yet)
+PROBE_CASES = [("feed", BATCH, 50_176, 50_000),
+               ("q6_income", 512, 512, 500),
+               ("q5_names", BATCH, 1_000_192, 1_000_000)]
+PROBE_HEAD = "feed"
+
+
 def check_sorted_probe(dev, rng):
+    """Bit-equal to the plain version at PROBE_CASES, with sentinel,
+    duplicate and below-all probes and a run of duplicate keys (leftmost
+    match wins); timed beside torch.searchsorted."""
     from repro_torch.core.refdata import KEY_SENTINEL
     from repro_torch.kernels.hash_probe import kernel, ref
-    r_valid, r = 50_000, 50_176
-    keys = np.full(r, KEY_SENTINEL, np.int64)
-    keys[:r_valid] = np.sort(rng.choice(200_000, r_valid, replace=False))
-    probe = rng.integers(0, 200_000, BATCH).astype(np.int64)  # ~1/4 hit
-    probe[:64] = KEY_SENTINEL                                 # sentinels
-    probe[64:128] = probe[128:192]                            # duplicates
-    probe[192:256] = -5                                       # below all
-    p, k = t(probe, dev), t(keys, dev)
-    gi, gf = kernel.sorted_probe(p, k)
-    wi, wf = ref.sorted_probe(p, k)
-    torch.cuda.synchronize()
-    if not (torch.equal(gi, wi) and torch.equal(gf, wf)):
-        raise AssertionError("sorted_probe kernel != plain version")
-    err = float((gi.long() - wi.long()).abs().max())
-    ms = time_ms(lambda: kernel.sorted_probe(p, k))
-    plain = time_ms(lambda: ref.sorted_probe(p, k))
-    lib = time_ms(lambda: torch.searchsorted(k, p))
-    dev_ms = device_ms(lambda: kernel.sorted_probe(p, k))
-    lib_dev = device_ms(lambda: torch.searchsorted(k, p))
-    nbytes = BATCH * 8 + r * 8 + BATCH * (4 + 1)
-    b_ms, b_by = bound(nbytes, BATCH * np.ceil(np.log2(r)))
-    log(f"kernel sorted_probe B={BATCH} R={r}: max_abs_err={err} "
-        f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
-        f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} "
-        f"(torch.searchsorted) bound_ms={b_ms:.6f} ({b_by}) "
-        f"hits={int(gf.sum())}")
+    rows = {}
+    for tag, b, r, r_valid in PROBE_CASES:
+        keys = np.full(r, KEY_SENTINEL, np.int64)
+        keys[:r_valid] = np.sort(rng.choice(4 * r_valid, r_valid,
+                                            replace=False))
+        keys[10:14] = keys[10]                          # duplicate keys
+        probe = rng.integers(0, 4 * r_valid, b).astype(np.int64)  # ~1/4 hit
+        probe[:64] = KEY_SENTINEL                                # sentinels
+        probe[64:128] = probe[128:192]                           # duplicates
+        probe[192:256] = -5                                      # below all
+        probe[256:260] = keys[10]
+        p, k = t(probe, dev), t(keys, dev)
+        gi, gf = kernel.sorted_probe(p, k)
+        wi, wf = ref.sorted_probe(p, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(gi, wi) and torch.equal(gf, wf)):
+            raise AssertionError(f"sorted_probe[{tag}] kernel != plain")
+        err = float((gi.long() - wi.long()).abs().max())
+        ms = time_ms(lambda: kernel.sorted_probe(p, k))
+        plain = time_ms(lambda: ref.sorted_probe(p, k))
+        lib = time_ms(lambda: torch.searchsorted(k, p))
+        dev_ms = device_ms(lambda: kernel.sorted_probe(p, k))
+        lib_dev = device_ms(lambda: torch.searchsorted(k, p))
+        # a lower-bound search reads at most ceil(log2 R) keys a probe
+        steps = int(np.ceil(np.log2(r)))
+        nbytes = b * 8 + min(r, b * steps) * 8 + b * (4 + 1)
+        b_ms, b_by = bound(nbytes, b * steps)
+        log(f"kernel sorted_probe[{tag}] B={b} R={r}: max_abs_err={err} "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} "
+            f"(torch.searchsorted) bound_ms={b_ms:.6f} ({b_by}) "
+            f"hits={int(gf.sum())}")
+        rows[tag] = {"probes": b, "rows": r, "max_abs_err": err, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain,
+                     "library_ms": lib, "library_device_ms": lib_dev,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    floor = launch_floor_ms()
+    log(f"launch floor: empty kernel device_ms={floor:.4f}")
     return {"name": "sorted_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/hash_probe/csrc/hash_probe.cu",
             "replaces": "src/repro/kernels/hash_probe/kernel.py:75",
-            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "library_device_ms": lib_dev}
+            **rows[PROBE_HEAD],
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "launch_floor_ms": floor, "by_case": rows}
+
+
+def spatial_points(layout, rng, b, r, radius, lo=(-60, -180),
+                   hi=(60, 180)):
+    """Probe and reference coordinates (px, py, rx, ry) for the spatial
+    join's cases, float32, drawn uniformly over the box [lo, hi] (by
+    default the tweets' latitudes and longitudes), then by ``layout``:
+
+    uniform    as drawn;
+    clustered  half the reference points within 5 degrees of 8 centres,
+               and half the probes 0.3 degrees from a reference point;
+    boundary   half the reference points on cell edges (multiples of the
+               cell side) or one ulp off them, then every probe at exactly
+               the radius, or one ulp in or out, from a reference point
+               along x or y;
+    nonfinite  NaN and infinite coordinates among probes and references;
+    huge       the box [-0.5, 0.5]^2 moved to 1e6, where float32's ulp
+               (0.0625) exceeds a radius below it.
+
+    tests/test_torch_cuda.py and tests/test_torch_spatial_hopper.py draw
+    their cases here too."""
+    f = np.float32
+    if layout == "huge":
+        lo, hi = (-0.5, -0.5), (0.5, 0.5)
+    px = rng.uniform(lo[0], hi[0], b).astype(f)
+    py = rng.uniform(lo[1], hi[1], b).astype(f)
+    rx = rng.uniform(lo[0], hi[0], r).astype(f)
+    ry = rng.uniform(lo[1], hi[1], r).astype(f)
+    if layout == "clustered":
+        h = r // 2
+        c = rng.integers(0, 8, h)
+        cx = rng.uniform(lo[0] + 10, hi[0] - 10, 8)[c]
+        cy = rng.uniform(lo[1] + 10, hi[1] - 10, 8)[c]
+        ang, rad = rng.uniform(0, 2 * np.pi, h), 5 * np.sqrt(rng.random(h))
+        rx[:h] = (cx + rad * np.cos(ang)).astype(f)
+        ry[:h] = (cy + rad * np.sin(ang)).astype(f)
+        n = min(b // 2, r)
+        px[:n], py[:n] = rx[:n] + f(0.3), ry[:n]
+    elif layout == "boundary":
+        from repro_torch.kernels.spatial_join.kernel import grid_plan
+        cell = f(grid_plan(r, radius).radius_w)
+        h = r // 2
+        edge = rng.integers(int(np.ceil(lo[0] / cell)),
+                            int(np.floor(hi[0] / cell)) + 1, h) * cell
+        edge = edge.astype(f)
+        rx[:h] = np.select([np.arange(h) % 3 == 0, np.arange(h) % 3 == 1],
+                           [edge, np.nextafter(edge, f(np.inf))],
+                           np.nextafter(edge, f(-np.inf)))
+        rad = f(radius)
+        offs = [rad, np.nextafter(rad, f(0)), np.nextafter(rad, f(np.inf)),
+                -rad, -np.nextafter(rad, f(np.inf))]
+        for i in range(b):
+            j = i % r
+            px[i], py[i] = rx[j], ry[j]
+            if i % 2:
+                px[i] = f(px[i] + offs[i % len(offs)])
+            else:
+                py[i] = f(py[i] - offs[i % len(offs)])
+    elif layout == "nonfinite":
+        px[:3], py[3:5] = [np.nan, np.inf, -np.inf], [np.nan, np.inf]
+        rx[:4], ry[3:6] = [np.nan, np.inf, -np.inf, 1.0], \
+            [np.nan, -np.inf, np.inf]
+    elif layout == "huge":
+        px, py, rx, ry = (a + f(1e6) for a in (px, py, rx, ry))
+    return px, py, rx, ry
+
+
+# (tag, probes, reference rows, valid rows, radius, k, layout): Q4's
+# monuments (the feed's join, k = 8, and radius_count's k = 1), Q5/Q7's
+# religious buildings (k = 3), the Q4 shape with clustered references, a
+# radius covering the whole table, and probes on the radius boundary
+SPATIAL_CASES = [("q4", BATCH, 50_176, 50_000, 1.5, 8, "uniform"),
+                 ("q4_count", BATCH, 50_176, 50_000, 1.5, 1, "uniform"),
+                 ("q5_q7", BATCH, 10_240, 10_000, 3.0, 3, "uniform"),
+                 ("clustered", BATCH, 50_176, 50_000, 1.5, 8, "clustered"),
+                 ("whole_table", BATCH, 50_176, 50_000, 400.0, 8,
+                  "uniform"),
+                 ("boundary", BATCH, 50_176, 50_000, 1.5, 8, "boundary")]
+SPATIAL_HEAD = "q4"
+# most device operations one radius_join call may issue, no memset
+SPATIAL_MAX_LAUNCHES = 4
 
 
 def check_radius_join(dev, rng):
+    """Bit-equal to the plain version (idx, dist2, count) at
+    SPATIAL_CASES; timed beside cdist + topk.  The bound counts the bytes
+    these inputs need (probes, reference coordinates and flags in, k
+    slots and a count out); the dense 5 * B * R float operations the TPU
+    kernel did stay logged as dense_ops_ms.  Each case's call is
+    captured in a CUDA graph (check_spatial_launches holds its nodes to
+    at most SPATIAL_MAX_LAUNCHES kernels and no memset or copy), and one
+    profiled call logs its device events and their device ms."""
     from repro_torch.kernels.spatial_join import kernel, ref
-    r_valid, r = 50_000, 50_176
     f = np.float32
-    px = rng.uniform(-60, 60, BATCH).astype(f)
-    py = rng.uniform(-180, 180, BATCH).astype(f)
-    rx = rng.uniform(-60, 60, r).astype(f)
-    ry = rng.uniform(-180, 180, r).astype(f)
-    # a few probes exactly on reference points and on the radius boundary
-    px[:8], py[:8] = rx[:8], ry[:8]
-    px[8:16], py[8:16] = rx[8:16] + f(1.5), ry[8:16]
-    valid = np.arange(r) < r_valid
-    args = [t(a, dev) for a in (px, py, rx, ry)]
-    vt = t(valid, dev)
-    out, err = {}, 0.0
-    for k in (8, 1):
-        gi, gd, gc = kernel.radius_join(*args, 1.5, k, vt)
-        wi, wd, wc = ref.radius_join(*args, 1.5, k, vt)
+    rows = {}
+    for tag, b, r, r_valid, radius, k, layout in SPATIAL_CASES:
+        px, py, rx, ry = spatial_points(layout, rng, b, r, radius)
+        if layout != "boundary":
+            # a few probes on reference points and on the radius boundary
+            px[:8], py[:8] = rx[:8], ry[:8]
+            px[8:16], py[8:16] = rx[8:16] + f(radius), ry[8:16]
+        valid = np.arange(r) < r_valid
+        args = [t(a, dev) for a in (px, py, rx, ry)]
+        vt = t(valid, dev)
+
+        def run():
+            return kernel.radius_join(*args, radius, k, vt)
+        gi, gd, gc = run()
+        wi, wd, wc = ref.radius_join(*args, radius, k, vt)
         torch.cuda.synchronize()
-        same_inf = torch.equal(torch.isinf(gd), torch.isinf(wd))
-        if not (torch.equal(gi, wi) and torch.equal(gc, wc) and same_inf):
-            raise AssertionError(f"radius_join k={k} kernel != plain")
+        same_d = torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+        if not (torch.equal(gi, wi) and torch.equal(gc, wc) and same_d):
+            bad = int((gi != wi).sum()) + int((gc != wc).sum())
+            raise AssertionError(f"radius_join[{tag}] kernel != plain "
+                                 f"({bad} idx/count slots differ; dist2 "
+                                 f"bits equal: {same_d})")
         fin = torch.isfinite(wd)
-        derr = float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0
-        if derr != 0.0:
-            raise AssertionError(f"radius_join k={k} dist2 differs by "
-                                 f"{derr} (same formula, same rounding)")
-        err = max(err, derr)
-        ms = time_ms(lambda: kernel.radius_join(*args, 1.5, k, vt))
-        plain = time_ms(lambda: ref.radius_join(*args, 1.5, k, vt), reps=5)
+        err = float((gd[fin] - wd[fin]).abs().max()) if fin.any() else 0.0
+        ms = time_ms(run)
+        dev_ms = device_ms(run)
+        plain = time_ms(lambda: ref.radius_join(*args, radius, k, vt),
+                        reps=3, warm=1)
         p2 = torch.stack(args[:2], 1)
         r2 = torch.stack(args[2:], 1)[:r_valid]
-        lib = time_ms(lambda: torch.topk(torch.cdist(p2, r2), k,
-                                         largest=False), reps=5)
-        dev_ms = device_ms(lambda: kernel.radius_join(*args, 1.5, k, vt))
-        lib_dev = device_ms(lambda: torch.topk(torch.cdist(p2, r2), k,
-                                               largest=False), n=10)
-        nbytes = BATCH * 8 + r * 9 + BATCH * k * 8 + BATCH * 4
-        b_ms, b_by = bound(nbytes, 5.0 * BATCH * r_valid)
-        log(f"kernel radius_join B={BATCH} R={r} k={k} r=1.5: "
-            f"max_abs_err={derr} ms={ms:.4f} device_ms={dev_ms:.4f} "
+
+        def lib_run():
+            return torch.topk(torch.cdist(p2, r2), k, largest=False)
+        lib = time_ms(lib_run, reps=3, warm=1)
+        lib_dev = device_ms(lib_run, n=5)
+        nbytes = b * 8 + r * 9 + b * k * 8 + b * 4
+        b_ms, b_by = bound(nbytes, 0.0)
+        dense_ms = 5.0 * b * r_valid / PEAK_F32_S * 1e3
+        log(f"kernel radius_join[{tag}] B={b} R={r} k={k} r={radius}: "
+            f"max_abs_err={err} ms={ms:.4f} device_ms={dev_ms:.4f} "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} "
             f"library_device_ms={lib_dev:.4f} (cdist+topk) "
-            f"bound_ms={b_ms:.6f} ({b_by}) in_radius={int(gc.sum())}")
-        out[k] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-                  "library_ms": lib, "library_device_ms": lib_dev,
-                  "bound_ms": b_ms, "bound_by": b_by}
+            f"bound_ms={b_ms:.6f} ({b_by}) dense_ops_ms={dense_ms:.6f} "
+            f"in_radius={int(gc.sum())}")
+        rows[tag] = {"probes": b, "rows": r, "k": k, "radius": radius,
+                     "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "library_device_ms": lib_dev, "bound_ms": b_ms,
+                     "bound_by": b_by, "dense_ops_ms": dense_ms,
+                     "in_radius": int(gc.sum())}
+        # the call's device operations (a captured graph's nodes), and
+        # one profiled call's device events, each with its count and
+        # device ms
+        rows[tag]["graph_ops"] = graph_ops(run)
+        events = device_events(run)
+        log(f"radius_join [{tag}]: graph {rows[tag]['graph_ops']}; device "
+            "events: " + (", ".join(
+                f"{n.split('(')[0]} x{e['count']} {e['device_ms']:.4f} ms"
+                for n, e in events.items()) or "none seen, not measured"))
+        rows[tag]["device_events"] = events
     return {"name": "radius_join", "route": "cuda",
             "source": ("src/repro_torch/kernels/spatial_join/csrc/"
                        "spatial_join.cu"),
             "replaces": "src/repro/kernels/spatial_join/kernel.py:103",
-            "max_abs_err": err, **out[8], "k1": out[1]}
+            **rows[SPATIAL_HEAD],
+            "max_abs_err": max(x["max_abs_err"] for x in rows.values()),
+            "by_case": rows}
+
+
+def check_spatial_launches(by_case) -> None:
+    """Fails unless one radius_join call issued at most
+    SPATIAL_MAX_LAUNCHES kernels and no memset or copy, in every case of
+    check_radius_join's ``by_case``."""
+    for tag, row in by_case.items():
+        check_ops(f"radius_join[{tag}]", row["graph_ops"],
+                  SPATIAL_MAX_LAUNCHES)
 
 
 # (tag, rows, segments, real groups, dtype): the feed's Q6 count width
@@ -438,29 +667,27 @@ TOPK_LAUNCH_SHAPES = [(2048, 128, 3, 1), (TOPK_ROWS, 256, 16, 2)]
 
 
 def check_topk_launches(dev, rng):
-    """One segment_topk call per TOPK_LAUNCH_SHAPES under torch.profiler:
-    fails if its device events are more kernels than allowed, or any
-    memset or copy.  Returns each shape's device events by name."""
+    """One segment_topk call per TOPK_LAUNCH_SHAPES captured in a CUDA
+    graph: fails if it issued more kernels than allowed, or any memset or
+    copy.  Returns each shape's operations, and a profiled call's device
+    events by name."""
     from repro_torch.kernels.segment_topk import kernel
     out = {}
     for r, s, k, most in TOPK_LAUNCH_SHAPES:
         vt = t(rng.integers(-1, 6, r).astype(np.int32), dev)
         st = t(rng.integers(0, s, r).astype(np.int32), dev)
-        kernel.segment_topk_idx(vt, st, s, k)
+
+        def run():
+            return kernel.segment_topk_idx(vt, st, s, k)
+        run()
         torch.cuda.synchronize()
-        prof, _ = profiled(lambda: kernel.segment_topk_idx(vt, st, s, k))
-        events = {ev.key: ev.count for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA}
-        ops = sum(events.values())
-        other = [n for n in events if "memset" in n.lower()
-                 or "memcpy" in n.lower()]
-        log(f"segment_topk launches R={r} S={s} k={k}: {ops} device "
-            f"events {events} (at most {most} kernels, no memset)")
-        out[f"R={r}"] = events
-        if ops > most or other or ops == 0:
-            raise AssertionError(f"segment_topk at R={r} issued {events} "
-                                 f"on the device, not at most {most} "
-                                 "kernels and no memset")
+        ops = graph_ops(run)
+        events = {n: e["count"] for n, e in device_events(run).items()}
+        log(f"segment_topk launches R={r} S={s} k={k}: graph {ops} (at "
+            f"most {most} kernels, no memset); device events "
+            f"{events or 'none seen, not measured'}")
+        out[f"R={r}"] = {"graph_ops": ops, "device_events": events}
+        check_ops(f"segment_topk at R={r}", ops, most)
     return out
 
 
@@ -1174,7 +1401,7 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
     for name, fn in runs.items():
         fn()
         torch.cuda.synchronize()
-        prof, wall_ms = profiled(fn)
+        prof, wall_ms = profiled_seen(fn)
         dev_ms, flash_ms = kernel_device_ms(prof), kernel_device_ms(
             prof, "flash_")
         wgmma_ms = kernel_device_ms(prof, "flash_wgmma")
@@ -1196,7 +1423,7 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
         api.decode_step(cfg, params, cache, step)
     decode()
     torch.cuda.synchronize()
-    prof, wall_ms = profiled(decode)
+    prof, wall_ms = profiled_seen(decode)
     dev_ms = kernel_device_ms(prof)
     out["decode_step"] = {"slots": SERVE_SLOTS, "cache_len": n,
                           "wall_ms": wall_ms, "device_ms": dev_ms,
@@ -1421,6 +1648,7 @@ def main() -> int:
                check_segment_sum(dev, rng), check_segment_topk(dev, rng),
                check_flash_attention(dev, rng)]
     kernels[3]["launch_profile"] = check_topk_launches(dev, rng)
+    check_spatial_launches(kernels[1]["by_case"])
     # phase 4
     t0 = time.perf_counter()
     store = RefStore()

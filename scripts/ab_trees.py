@@ -1,18 +1,20 @@
 """Time the port from two source trees in turns on one CUDA card.
 
     python3 scripts/ab_trees.py --base DIR [--what kernels|paths|both]
-                                [--out FILE]
+                                [--turns base,this,this,base] [--out FILE]
 
 DIR is another checkout of this repository (for example an unpacked
-``git archive`` of the parent commit).  Turns run in the order base, this,
-this, base, each in its own process: this checkout's ``chip_smoke.py``
-functions drive that tree's ``src/repro_torch`` (kernels built from its
-sources into its own build directory).
+``git archive`` of the parent commit).  Turns run in the order --turns
+gives (by default base, this, this, base), each in its own process: this
+checkout's ``chip_smoke.py`` functions drive that tree's
+``src/repro_torch`` (kernels built from its sources into its own build
+directory).  ``--turns base`` measures the other tree alone.
 
-  kernels  phase 3's segment_sum and segment_topk checks at every case
-           (each result held to the plain version, then timed), and the
-           profiled segment_topk launch check, which is reported and does
-           not fail the turn;
+  kernels  phase 3's sorted_probe, radius_join, segment_sum and
+           segment_topk checks at every case (each result held to the
+           plain version, then timed), the empty kernel's launch floor,
+           and the profiled segment_topk and radius_join launch checks,
+           which are reported and do not fail the turn;
   paths    the feed (``run_feed``: 20 x 6,720 tweets at scale 1.0) and
            serving (``serve_path``: deepseek-coder-33b at full width, 4
            layers, 12 requests).
@@ -50,6 +52,16 @@ def child(tree: str, what: str) -> dict:
     out = {}
     if what in ("kernels", "both"):
         rng = np.random.default_rng(2019)
+        sp = cs.check_sorted_probe(dev, rng)
+        sj = cs.check_radius_join(dev, rng)
+        out["launch_floor_ms"] = sp["launch_floor_ms"]
+        out["sorted_probe"] = sp["by_case"]
+        out["radius_join"] = sj["by_case"]
+        try:
+            cs.check_spatial_launches(sj["by_case"])
+            out["spatial_launches"] = "ok"
+        except AssertionError as e:
+            out["spatial_launches"] = str(e)
         out["segment_sum"] = cs.check_segment_sum(dev, rng)["by_case"]
         out["segment_topk"] = cs.check_segment_topk(dev, rng)["by_case"]
         try:
@@ -78,6 +90,8 @@ def main() -> int:
                     help="the other checkout's root")
     ap.add_argument("--what", default="both",
                     choices=("kernels", "paths", "both"))
+    ap.add_argument("--turns", default="base,this,this,base",
+                    help="comma-separated order of the trees' turns")
     ap.add_argument("--out", default=None, help="JSON file of all turns")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -91,7 +105,7 @@ def main() -> int:
     print(smi, flush=True)
     trees = {"base": os.path.abspath(args.base), "this": HERE}
     turns = []
-    for name in ("base", "this", "this", "base"):
+    for name in args.turns.split(","):
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--base", args.base, "--what", args.what,
                             "--child", trees[name]],

@@ -21,17 +21,20 @@ KERNEL = CudaKernel(
 def sorted_probe(probe: torch.Tensor, ref_keys: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """probe: (B,) int64; ref_keys: (R,) int64 ascending, sentinel-padded.
-    Returns (idx (B,) int32 [-1 when absent], found (B,) bool)."""
-    dev = check_same_cuda(probe, ref_keys)
+    Returns (idx (B,) int32 [-1 when absent], found (B,) bool).  The
+    arguments are checked before the device: outside the envelope it
+    raises anywhere."""
     if probe.dtype != torch.int64 or ref_keys.dtype != torch.int64:
         raise TypeError(f"sorted_probe takes int64 keys, got "
                         f"{probe.dtype} / {ref_keys.dtype}")
     if probe.dim() != 1 or ref_keys.dim() != 1:
         raise ValueError("sorted_probe takes 1-D probe and key columns")
-    probe, ref_keys = probe.contiguous(), ref_keys.contiguous()
     b, r = probe.shape[0], ref_keys.shape[0]
-    if r >= 2**31:
-        raise ValueError(f"key column of {r} rows exceeds int32 indices")
+    if max(b, r) >= 2**31:
+        raise ValueError(f"sorted_probe: {max(b, r)} rows exceed int32 "
+                         "indices")
+    dev = check_same_cuda(probe, ref_keys)
+    probe, ref_keys = probe.contiguous(), ref_keys.contiguous()
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     found = torch.empty(b, dtype=torch.bool, device=dev)
     if b:

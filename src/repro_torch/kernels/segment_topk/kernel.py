@@ -92,8 +92,9 @@ def segment_topk_idx(values: torch.Tensor, seg: torch.Tensor,
     dev = check_same_cuda(values, seg)
     if values.dtype != torch.int32:
         # the kernel clips negatives itself; wider values saturate at
-        # 2^31 - 1 as in the plain version's composite key
-        values = values.long().clamp_(0, 2**31 - 1)
+        # 2^31 - 1 as in the plain version's composite key; out of place,
+        # since .long() of an int64 tensor is the caller's own tensor
+        values = values.long().clamp(0, 2**31 - 1)
     values = values.to(torch.int32).contiguous()
     seg = seg.to(torch.int32).contiguous()
     out = torch.empty((num_segments, k), dtype=torch.int32, device=dev)

@@ -7,6 +7,9 @@ runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,11 @@ from repro_torch.kernels.spatial_join import kernel as sj_kernel
 from repro_torch.kernels.spatial_join import ref as sj_ref
 
 pytestmark = pytest.mark.cuda
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -68,6 +76,108 @@ def test_radius_join_kernel_equals_plain_bit_for_bit(card, k):
     want = sj_ref.radius_join(*args, 2.0, k, valid)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# (case, B, R, radius, k): the probe shapes of Q5/Q7 and radius_count,
+# references clustered around 8 centres, a radius covering the whole table
+# (every pair in radius), probes on the radius and references on cell
+# edges, non-finite coordinates, coordinates near 1e6 (float32's ulp past
+# the radius: the scan-every-bucket mode), a zero radius, no references
+GRID_CASES = [("q5_q7", 6720, 10_240, 3.0, 3), ("q4_count", 6720, 50_176,
+                                                1.5, 1),
+              ("clustered", 3000, 50_176, 1.5, 8),
+              ("whole_table", 500, 5000, 400.0, 8),
+              ("boundary", 3000, 4000, 1.5, 8),
+              ("nonfinite", 700, 5000, 2.0, 4), ("huge", 300, 2000, 0.04, 4),
+              ("zero_radius", 300, 2000, 0.0, 2), ("empty", 40, 0, 1.5, 3),
+              ("no_mask", 700, 5000, 2.0, 16)]
+
+
+def _grid_case(name, b, r, radius, rng):
+    layout = name if name in ("clustered", "boundary", "nonfinite",
+                              "huge") else "uniform"
+    px, py, rx, ry = chip_smoke.spatial_points(layout, rng, b, r, radius)
+    if name == "zero_radius":
+        px[:50], py[:50] = rx[:50], ry[:50]
+    return px, py, rx, ry
+
+
+@pytest.mark.parametrize("name,b,r,radius,k", GRID_CASES)
+def test_radius_join_grid_cases_equal_plain(card, name, b, r, radius, k):
+    """The grid join at its edges, bit for bit: idx, d2 bits and count."""
+    rng = np.random.default_rng(b + r)
+    px, py, rx, ry = _grid_case(name, b, r, radius, rng)
+    args = [on(a, card) for a in (px, py, rx, ry)]
+    valid = None if name == "no_mask" else on(rng.random(r) < 0.9, card)
+    got = sj_kernel.radius_join(*args, radius, k, valid)
+    want = sj_ref.radius_join(*args, radius, k, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    if name not in ("empty", "nonfinite"):
+        assert int(want[2].sum()) > 0
+
+
+@pytest.mark.parametrize("b,r,r_valid,offset", [
+    (6720, 50_176, 50_000, 0),        # the feed and read path
+    (512, 512, 500, 0),               # Q6's income join
+    (6720, 1_000_192, 1_000_000, 0),  # Q5's suspicious_names
+    (300, 4000, 3990, 1),             # an 8-byte-aligned whole column
+    (3, 0, 0, 0), (2, 1, 1, 0)])
+def test_sorted_probe_kernel_at_path_shapes(card, b, r, r_valid, offset):
+    rng = np.random.default_rng(r)
+    keys = np.full(r + offset, KEY_SENTINEL, np.int64)
+    keys[offset:offset + r_valid] = np.sort(
+        rng.choice(4 * max(r_valid, 1), r_valid, replace=False))
+    if r_valid > 20:
+        keys[offset + 10:offset + 14] = keys[offset + 10]
+    probe = rng.integers(-5, 4 * max(r_valid, 1) + 5, b).astype(np.int64)
+    probe[0] = KEY_SENTINEL
+    if r_valid:
+        probe[1:] = np.where(rng.random(b - 1) < 0.5,
+                             keys[offset + rng.integers(0, r_valid, b - 1)],
+                             probe[1:])
+    p, k = on(probe, card), on(keys, card)[offset:]
+    gi, gf = hp_kernel.sorted_probe(p, k)
+    wi, wf = hp_ref.sorted_probe(p, k)
+    assert torch.equal(gi, wi) and torch.equal(gf, wf)
+    assert not gf[0] and (gf.any() or r_valid == 0)
+
+
+def test_q5_q7_on_card_equal_cpu(card):
+    """Q5's and Q7's apply (two radius joins at k = 3, a hash join, group
+    counts within the radius) through a ComputingRunner on the card and
+    on the CPU over the same tables.  The in-radius group count computes
+    |a|^2 + |b|^2 - 2ab as a matrix product, which rounds differently on
+    the two devices, so no tweet-reference pair may lie within 0.05 of
+    r^2 (then no membership can differ); integer outputs equal."""
+    from repro_torch.core import ComputingRunner, ComputingSpec, RefStore
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.core.records import SyntheticTweets, parse_json_lines
+    store = RefStore()
+    Q.make_reference_tables(store, scale=0.02, seed=7)
+    batch = parse_json_lines(SyntheticTweets(seed=3).raw_lines(128))
+    for table in ("religious_buildings", "facilities"):
+        a = store[table].snapshot().arrays
+        ok = a["key"] != np.iinfo(np.int64).max
+        dx = batch["lat"][:, None].astype(np.float64) - a["lat"][ok][None]
+        dy = batch["lon"][:, None].astype(np.float64) - a["lon"][ok][None]
+        d = dx * dx + dy * dy
+        assert np.abs(d - 9.0).min() > 0.05, table
+        assert (d <= 9.0).any(), table
+    from repro_torch import kernels
+    for udf in (Q.Q5, Q.Q7):
+        b = batch["id"].shape[0]
+        kernels.reset_launch_counts()
+        got = ComputingRunner(ComputingSpec(udf, b), store,
+                              device="cuda").run(dict(batch))
+        assert kernels.launch_counts()["spatial_join"] == 1
+        want = ComputingRunner(ComputingSpec(udf, b), store,
+                               device="cpu").run(dict(batch))
+        assert set(got) == set(want)
+        for key in want:
+            g, w = np.asarray(got[key]), np.asarray(want[key])
+            assert g.dtype == w.dtype and g.shape == w.shape, key
+            np.testing.assert_array_equal(g, w, err_msg=key)
 
 
 # (case, dtype): 300 uniform segments in every dtype; 6 real groups of
@@ -192,13 +302,17 @@ def test_routing_by_device_on_card(card):
                                  2)
     assert torch.equal(pay.cpu(), want[0]) and torch.equal(val.cpu(),
                                                            want[1])
-    # int64 values rank clipped to [0, 2^31), as in the plain version
+    # int64 values rank clipped to [0, 2^31), as in the plain version, and
+    # come back unclipped; the caller's tensor is left as it was
     big = (seg.long() - 3) << 33
+    before = big.clone()
+    want = dispatch.segment_topk(before.cpu(), seg.cpu(), ids.cpu(), 7, 2)
     kernels.path_tape_start()
     pay, val = dispatch.segment_topk(big, seg, ids, 7, 2)
     assert kernels.path_tape_stop() == {("segment_topk", "kernel"): 1}
     assert launch_counts()["segment_topk"] == 2
-    want = dispatch.segment_topk(big.cpu(), seg.cpu(), ids.cpu(), 7, 2)
+    assert torch.equal(big, before)
+    assert (want[1] > 2**31 - 1).any() and (want[1] < 0).any()
     assert torch.equal(pay.cpu(), want[0]) and torch.equal(val.cpu(),
                                                            want[1])
     # outside the envelope (float values, k > 16) the composite sort runs

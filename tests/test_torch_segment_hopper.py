@@ -20,6 +20,8 @@ from repro_torch.kernels.segment_reduce import kernel as sr_kernel
 from repro_torch.kernels.segment_reduce import ops as sr_ops
 from repro_torch.kernels.segment_reduce import ref as sr_ref
 from repro_torch.kernels.segment_topk import kernel as st_kernel
+from repro_torch.kernels.segment_topk import ops as st_ops
+from repro_torch.kernels.segment_topk import ref as st_ref
 
 SMEM = 232_448          # shared memory a Hopper block can use
 STATIC_SMEM = 48 * 1024  # above this a kernel needs the opt-in attribute
@@ -237,3 +239,89 @@ def test_count_ops_route_the_cpu_to_the_plain_count():
     m = torch.empty(9, dtype=torch.int64, device="meta")
     out = sr_ops.segment_count(m, 3)
     assert out.device.type == "meta" and out.shape == (3,)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper leaves its caller's tensor alone
+# ---------------------------------------------------------------------------
+
+def _emulated_launch(captured):
+    """A stand-in for ``KERNEL.launch`` on host memory: it reads the int32
+    values and segments the wrapper hands the kernel (by their pointers)
+    and writes the plain version's rows into the output, as the card
+    would."""
+    import ctypes
+
+    def launch(symbol, dev, vptr, sptr, r, s, k, blocks, rows, scratch,
+               optr):
+        vals = np.ctypeslib.as_array((ctypes.c_int32 * r).from_address(vptr))
+        segs = np.ctypeslib.as_array((ctypes.c_int32 * r).from_address(sptr))
+        captured.append(vals.copy())
+        want = st_ref.segment_topk_idx(torch.from_numpy(vals.copy()),
+                                       torch.from_numpy(segs.copy()), s, k)
+        ctypes.memmove(optr, want.numpy().ctypes.data, s * k * 4)
+    return launch
+
+
+@pytest.fixture
+def host_kernel(monkeypatch):
+    """segment_topk's kernel path run on host tensors: the device checks
+    and the SM count are stubbed and the launch is emulated."""
+    captured = []
+    monkeypatch.setattr(st_kernel, "check_same_cuda",
+                        lambda *ts: ts[0].device)
+    monkeypatch.setattr(st_kernel, "sm_count", lambda dev: st_kernel.SM_COUNT)
+    monkeypatch.setattr(st_kernel.KERNEL, "launch", _emulated_launch(captured))
+    return captured
+
+
+def _wide_values(r, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-(2**40), 2**40, r).astype(np.int64)
+    v[:4] = [-1, 2**31, 2**31 - 1, 2**62]
+    return v
+
+
+@pytest.mark.parametrize("r", [600, 9000])
+def test_topk_wrapper_leaves_int64_values_unchanged(host_kernel, r):
+    """Values below 0 and past 2^31 - 1 rank clipped, but the clip is
+    made on a copy: the caller's int64 tensor is the same after the call,
+    and the kernel is handed the clipped int32 copy."""
+    v = _wide_values(r, r)
+    seg = np.arange(r, dtype=np.int32) % 7
+    vt = torch.from_numpy(v.copy())
+    got = st_kernel.segment_topk_idx(vt, torch.from_numpy(seg), 7, 3)
+    np.testing.assert_array_equal(vt.numpy(), v)
+    np.testing.assert_array_equal(host_kernel[0], np.clip(v, 0, 2**31 - 1))
+    assert torch.equal(got, st_ref.segment_topk_idx(torch.from_numpy(v),
+                                                    torch.from_numpy(seg),
+                                                    7, 3))
+
+
+def test_dispatch_topk_kernel_path_returns_unclipped_values(host_kernel,
+                                                            monkeypatch):
+    """``dispatch.segment_topk`` on the kernel path gathers its values from
+    the caller's unchanged tensor: the unclipped originals, as ``repro``
+    returns them, equal to the plain path's output."""
+    r = 600
+    v = _wide_values(r, 3)
+    seg = np.arange(r, dtype=np.int32) % 7
+    ids = np.arange(r, dtype=np.int64) * 10
+    monkeypatch.setattr(t_dispatch, "on_cuda", lambda t: True)
+    monkeypatch.setattr(st_ops, "on_cuda", lambda t: True)
+    vt = torch.from_numpy(v.copy())
+    path_tape_start()
+    pay, val = t_dispatch.segment_topk(vt, torch.from_numpy(seg),
+                                       torch.from_numpy(ids), 7, 2)
+    assert path_tape_stop() == {("segment_topk", "kernel"): 1}
+    np.testing.assert_array_equal(vt.numpy(), v)
+    monkeypatch.undo()
+    wpay, wval = t_dispatch.segment_topk(torch.from_numpy(v),
+                                         torch.from_numpy(seg),
+                                         torch.from_numpy(ids), 7, 2)
+    assert torch.equal(pay, wpay) and torch.equal(val, wval)
+    with dispatch_mode("reference"):
+        rpay, rval = r_dispatch.segment_topk(v, seg, ids, 7, 2)
+    np.testing.assert_array_equal(val.numpy(), np.asarray(rval))
+    np.testing.assert_array_equal(pay.numpy(), np.asarray(rpay))
+    assert (val.numpy() > 2**31 - 1).any() or (val.numpy() < 0).any()
