@@ -50,10 +50,20 @@ Phases, each fatal on failure:
      be the wgmma body's; each layer's q, k, v of a 1,536-token prefill
      held kernel against plain version; prompts of 32, 40 and 200
      tokens teacher-forced on the CPU from the same weights, logits held
-     to the card's.
-Each path (4-6, 7, 8) runs with the launch counts set to 0 just before it
-and read just after; the kernels line gives each kernel's launches on the
-three paths (feed, read_path, serve) and their sum.
+     to the card's;
+  9. LM training: the LM data plane (UDF2 -> tokenize -> safe-only filter
+     -> packer, 2 partitions, over phase 4's tables) feeds the Trainer
+     with deepseek-coder-33b at full width, 4 of 62 layers, bf16
+     parameters, float32 AdamW, remat "full", batches of 2 x 4,096
+     tokens; the first batch's gradient must be finite and non-zero in
+     every leaf, then 2 warm and 10 timed steps with finite losses and an
+     exact step count, one step profiled; no hand kernel may launch and
+     every attention must be the chunked plain version ("plain_on_card");
+     one step of a 1-layer model on a packed row of 1,024 tokens is held
+     to the same step on the CPU.
+Each path (4-6, 7, 8, 9) runs with the launch counts set to 0 just before
+it and read just after; the kernels line gives each kernel's launches on
+the four paths (feed, read_path, serve, train) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -61,6 +71,7 @@ Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -1608,6 +1619,330 @@ def serve_cross_check(cfg, params, dev):
     return {**worst, "seconds": cpu_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM training of deepseek-coder-33b at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4             # of 62, as serving
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2   # deepseek-coder's 4,096-token window
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+TRAIN_LR = 3.5e-4            # deepseek-coder 33B's peak learning rate
+TRAIN_SEED = 0
+TRAIN_FRAMES = 2             # 13,440 tweets: ~19 batches of 8,192 tokens
+# the cross-check: 1 of 62 layers at full width, one packed row of 1,024
+# tokens, so the attention (blocks of 512) and the cross-entropy (chunks
+# of 512) both chunk
+CHECK_LAYERS, CHECK_SEQ = 1, 1024
+# Card against CPU after one step from the same state (bf16 parameters):
+# |d loss|, |d grad_norm| / grad_norm, and per leaf |d update| / |update|
+# (update = new - old parameters), its largest over the leaves.
+# scripts/train_step_spread.py measured them at this configuration (3
+# trials; NVIDIA H100 80GB HBM3, 700 W): sound, at most 1.54e-4, 8.94e-3
+# and 0.660 (bf16 rounds each new parameter to within an ulp, ~1/6 of
+# the update); with the attention output detached, each trial's
+# grad_norm at least 0.910 and update 26.6 (its loss is the sound one:
+# the forward is unchanged); with the segment mask dropped, at least
+# 0.0173, 0.829 and 1.196.  The limits lie between the two.
+TRAIN_CHECK_TOL = {"loss": 0.005, "grad_norm": 0.1, "update": 0.9}
+
+
+def train_model_flops(cfg, seq: int) -> float:
+    """Model FLOPs per token of one training step: 6 x parameters (forward
+    and backward of every weight) plus causal attention's 6 * L * H * D *
+    S (QK^T and PV over S/2 keys on average, 2 FLOPs each, times 3)."""
+    from repro_torch.models import api
+    return (6.0 * api.param_count(cfg) + 6.0 * cfg.num_layers
+            * cfg.num_heads * cfg.resolved_head_dim * seq)
+
+
+def train_source(store, dev, cfg, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                 frames=TRAIN_FRAMES, frame=BATCH):
+    """The LM data plane over the phase-4 tables: UDF2 (the
+    SensitiveWords join) -> tokenize -> safe-only filter -> packer, 2
+    partitions, on ``dev``."""
+    from repro_torch.core import FeedManager
+    from repro_torch.train.data_feed import FeedDataSource
+    return FeedDataSource(FeedManager(store, device=dev),
+                          vocab_size=cfg.vocab_size, seq_len=seq,
+                          batch_size=batch, total_records=frames * frame,
+                          frame_size=frame, safety_filter=True,
+                          num_partitions=2, seed=SEED_STREAM)
+
+
+def packed_row(seq, seed=0, vocab=512):
+    """One packed row of tweet-sized documents (5-16 tokens) drawn from a
+    seeded numpy stream (the CPU-sized stand-in for the data plane's)."""
+    from repro_torch.data.packing import StreamPacker
+    rng = np.random.default_rng(seed)
+    packer = StreamPacker(seq, 1)
+    while True:
+        out = packer.add(rng.integers(16, vocab, int(rng.integers(5, 17)))
+                         .tolist())
+        if out is not None:
+            return out
+
+
+def check_grads(grads) -> dict:
+    """Every leaf's gradient finite and not all zero (a detached attention
+    leaves wq, wk and wv with zeros); returns each leaf's norm."""
+    from repro_torch.models.params import tree_flatten
+    leaves, struct = tree_flatten(grads)
+    norms = {}
+    for name, g in zip(_leaf_names(struct), leaves):
+        n = float(torch.linalg.vector_norm(g.float()))
+        norms[name] = n
+        if not bool(torch.isfinite(g).all()) or not n > 0:
+            raise AssertionError(f"train: the gradient of {name} is not "
+                                 f"finite or all zero (norm {n})")
+    return norms
+
+
+def _leaf_names(struct, prefix=""):
+    if isinstance(struct, dict):
+        for k, v in struct.items():
+            yield from _leaf_names(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1]
+
+
+def attention_share_ms(cfg, dev, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+    """Device ms of one layer's training attention at the step's shape:
+    the chunked forward alone (the checkpointed layer's first pass) and
+    forward + backward with gradients (its recompute and backward)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+    q, k, v = rnd(batch, seq, h, d), rnd(batch, seq, kv, d), \
+        rnd(batch, seq, kv, d)
+    pos = L.default_positions(batch, seq, dev)
+    blk = L._pick_block(seq)
+
+    def fwd():
+        with torch.no_grad():
+            L._chunked_gqa(cfg, q, k, v, pos, pos, None, None, blk, blk,
+                           True)
+
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def fwd_bwd():
+        out = L._chunked_gqa(cfg, qg, kg, vg, pos, pos, None, None, blk,
+                             blk, True)
+        out.float().sum().backward()
+    return {"forward_ms": time_ms(fwd, reps=3, warm=1),
+            "forward_backward_ms": time_ms(fwd_bwd, reps=3, warm=1)}
+
+
+def train_path(dev, store, cfg=None, seq=TRAIN_SEQ):
+    """Trainer over the LM data plane: the first batch's gradients checked
+    leaf by leaf, then TRAIN_WARM + TRAIN_TIMED steps.  Returns (the
+    measurements, with the launch counts and attention paths read just
+    after the run under "launches" and "paths"; the trainer; one more
+    batch).  ``cfg`` and ``seq`` default to the phase's (a CPU rehearsal
+    passes small ones)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, path_stats
+    from repro_torch.models import api
+    from repro_torch.train import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = cfg or get_config(SERVE_ARCH).replace(num_layers=TRAIN_LAYERS)
+    steps = TRAIN_WARM + TRAIN_TIMED
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARM, total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, TrainerConfig(steps=steps, log_every=1,
+                                              seed=TRAIN_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.param_count(cfg)
+    log(f"train: {SERVE_ARCH} at full width, {cfg.num_layers} of 62 layers, "
+        f"{n_params:,} parameters ({cfg.param_dtype}), remat {cfg.remat}, "
+        f"AdamW state {opt.state_dtype}: drawn in {init_s:.3f} s")
+    source = train_source(store, dev, cfg, seq=seq)
+    try:
+        it = iter(source)
+        t0 = time.perf_counter()
+        first = next(it)
+        first_wait = time.perf_counter() - t0
+        loss, _, grads = trainer.step_fn.accumulate(trainer.state["params"],
+                                                    first)
+        norms = check_grads(grads)
+        del grads
+        log(f"train: first batch after {first_wait:.2f} s; its loss "
+            f"{float(loss):.4f}, every one of {len(norms)} gradient leaves "
+            f"finite and non-zero (norms {min(norms.values()):.4g} to "
+            f"{max(norms.values()):.4g})")
+        t0 = time.perf_counter()
+        hist = trainer.run(itertools.chain([first], it))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spare = next(it)
+    finally:
+        source.close()
+    res = {"launches": launch_counts(), "paths": path_stats()}
+    losses = [h["loss"] for h in hist]
+    if (int(trainer.state["step"]) != steps or len(hist) != steps
+            or [h["step"] for h in hist] != list(range(1, steps + 1))
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"train: {int(trainer.state['step'])} steps "
+                             f"of {steps}, losses {losses}")
+    timed = trainer.step_times[TRAIN_WARM:]
+    step_s = [t["data_wait_s"] + t["grad_s"] + t["update_s"] for t in timed]
+    timed_wall = hist[-1]["wall_s"] - hist[TRAIN_WARM - 1]["wall_s"]
+    tokens = TRAIN_BATCH * seq
+    flops = train_model_flops(cfg, seq) * tokens
+    med = float(statistics.median(step_s))
+    res.update({"layers": cfg.num_layers, "parameters": n_params,
+                "seq_len": seq, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+                "steps": steps, "wall_s": wall, "init_s": init_s,
+                "first_batch_wait_s": first_wait,
+                "losses": losses,
+                "loss_tokens": [h["tokens"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "step_ms_median": med * 1e3,
+                "data_wait_ms_median": statistics.median(
+                    t["data_wait_s"] for t in timed) * 1e3,
+                "forward_backward_ms_median": statistics.median(
+                    t["grad_s"] for t in timed) * 1e3,
+                "optimizer_ms_median": statistics.median(
+                    t["update_s"] for t in timed) * 1e3,
+                "step_times": trainer.step_times,
+                "tokens_per_s": TRAIN_TIMED * tokens / timed_wall,
+                "model_flops_per_token": flops / tokens,
+                "train_mfu": flops / med / PEAK_BF16_S,
+                "filtered_records": source.filtered,
+                "gradient_norms_first_batch": norms})
+    log(f"train: {steps} steps ({TRAIN_WARM} warm) of {TRAIN_BATCH} x "
+        f"{seq} tokens in {wall:.2f} s: "
+        f"{res['tokens_per_s']:.1f} tokens/s; step {med * 1e3:.1f} ms "
+        f"(median) = data wait {res['data_wait_ms_median']:.2f} + forward + "
+        f"backward {res['forward_backward_ms_median']:.1f} + optimizer "
+        f"{res['optimizer_ms_median']:.1f}; train_mfu "
+        f"{res['train_mfu']:.4f} ({res['model_flops_per_token'] / 1e9:.2f} "
+        f"GFLOP a token over {PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16)")
+    log("train: loss per step " + ", ".join(f"{x:.4f}" for x in losses))
+    return res, trainer, spare
+
+
+def train_profile(res, trainer, batch, seq=TRAIN_SEQ):
+    """One more step of ``trainer`` on ``batch`` profiled (device busy
+    share), the peak memory, and one layer's attention timed alone
+    (its share of the median step)."""
+    cfg = trainer.model_cfg
+    prof, prof_ms = profiled_seen(lambda: trainer.step_fn(trainer.state,
+                                                          batch))
+    dev_ms = kernel_device_ms(prof)
+    res["profile"] = {"wall_ms": prof_ms, "device_ms": dev_ms,
+                      "device_busy_share": dev_ms / prof_ms}
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del prof
+    att = res["attention_layer"] = attention_share_ms(cfg, trainer.device,
+                                                      seq)
+    res["attention_share_of_step"] = cfg.num_layers * (
+        att["forward_ms"] + att["forward_backward_ms"]) / res[
+            "step_ms_median"]
+    log(f"train: peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"profiled step: device {dev_ms:.1f} ms of {prof_ms:.1f} ms "
+        f"wall, device busy {dev_ms / prof_ms:.4f}; one layer's attention "
+        f"forward {att['forward_ms']:.1f} ms, forward + backward "
+        f"{att['forward_backward_ms']:.1f} ms: {cfg.num_layers} layers' "
+        f"share of a step {res['attention_share_of_step']:.4f}")
+    return res
+
+
+def train_check_readings(dev, row, seed, fault=None, cpu=None, cfg=None):
+    """One train step of a CHECK_LAYERS-layer full-width model from one
+    seeded state, on the card (with ``fault`` planted: "detach" cuts the
+    attention output from its inputs, "nomask" drops the segment mask)
+    and on the CPU (``cpu``: a result of an earlier call to reuse).
+    Returns (readings, the CPU's result).  ``cfg`` defaults to the
+    check's model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import tree_flatten, tree_map
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = cfg or get_config(SERVE_ARCH).replace(num_layers=CHECK_LAYERS)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=10)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = init_train_state(cfg, opt, gen)
+    # from step 3 with seeded moments (m ~ N(0, 1e-5), v = m'^2): zero
+    # moments make the first update sign(g), and lr is 0 at step 0
+    state["step"].fill_(3)
+    with torch.no_grad():
+        for m in tree_flatten(state["opt"]["m"])[0]:
+            m.normal_(0.0, 1e-5, generator=gen)
+        for v in tree_flatten(state["opt"]["v"])[0]:
+            v.normal_(0.0, 1e-5, generator=gen).square_()
+    flat, struct = tree_flatten(state["params"])
+    names = list(_leaf_names(struct))
+    host = dict(device="cpu", dtype=torch.float32, copy=True)
+    before = [x.to(**host) for x in flat]
+    del flat
+    if cpu is None:
+        cpu_state = tree_map(lambda x: x.to("cpu", copy=True), state)
+    step = make_train_step(cfg, opt)
+    orig = L._sdpa
+
+    def planted(cfg_, q, k, v, pq, pk, sq, sk, causal):
+        if fault == "nomask":
+            sq = sk = None
+        out = orig(cfg_, q, k, v, pq, pk, sq, sk, causal)
+        return out.detach() if fault == "detach" else out
+    L._sdpa = planted
+    try:
+        new, cm = step(state, row)
+    finally:
+        L._sdpa = orig
+    card = [x.to(**host) for x in tree_flatten(new["params"])[0]]
+    card_m = {k: float(v) for k, v in cm.items()}
+    del new, state
+    if cpu is None:
+        new, pm = step(cpu_state, row)
+        cpu = {"params": [x.to(**host)
+                          for x in tree_flatten(new["params"])[0]],
+               "metrics": {k: float(v) for k, v in pm.items()}}
+        del new, cpu_state
+    upd = {}
+    for name, b, c, p in zip(names, before, card, cpu["params"]):
+        want = p - b
+        upd[name] = float(torch.linalg.vector_norm(c - p)
+                          / torch.linalg.vector_norm(want).clamp(min=1e-30))
+    worst = max(upd, key=upd.get)
+    pm = cpu["metrics"]
+    return ({"loss": abs(card_m["loss"] - pm["loss"]),
+             "grad_norm": abs(card_m["grad_norm"] - pm["grad_norm"])
+             / pm["grad_norm"],
+             "update": upd[worst], "update_leaf": worst,
+             "card_loss": card_m["loss"], "cpu_loss": pm["loss"],
+             "card_grad_norm": card_m["grad_norm"],
+             "cpu_grad_norm": pm["grad_norm"], "update_by_leaf": upd},
+            cpu)
+
+
+def train_cross_check(dev, row, cfg=None):
+    """One step on the card against the CPU from the same state
+    (TRAIN_CHECK_TOL)."""
+    t0 = time.perf_counter()
+    r, _ = train_check_readings(dev, row, TRAIN_SEED + 1, cfg=cfg)
+    r["seconds"] = time.perf_counter() - t0
+    bad = [k for k, tol in TRAIN_CHECK_TOL.items() if not r[k] <= tol]
+    log(f"train cross-check ({CHECK_LAYERS} layer, {CHECK_SEQ} tokens, "
+        f"{int(row['segment_ids'].max())} documents): |d loss| "
+        f"{r['loss']:.4g} (card {r['card_loss']:.5f}, CPU "
+        f"{r['cpu_loss']:.5f}), |d grad_norm| / grad_norm "
+        f"{r['grad_norm']:.4g}, worst |d update| / |update| {r['update']:.4g}"
+        f" ({r['update_leaf']}); limits {TRAIN_CHECK_TOL}; "
+        f"{r['seconds']:.1f} s")
+    if bad:
+        raise AssertionError(f"train cross-check: {bad} beyond "
+                             f"{TRAIN_CHECK_TOL}: {r}")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -1744,13 +2079,39 @@ def main() -> int:
     serve["cross_check"] = serve_cross_check(cfg, params, dev)
     serve["init_s"] = init_s
     del params
+    # phase 9, training, from counts and path stats of 0: the data plane
+    # and the trainer launch no hand kernel (UDF2 is a dense match; the
+    # flash kernel is forward-only), and every training attention is the
+    # chunked plain version on the card, twice a layer a fwd+bwd (the
+    # checkpointed layer's first pass and its recompute).  Float32
+    # products in TF32: exact for the bf16 operands of the scores and the
+    # head, p rounded to 10 bits in P.V
+    torch.backends.cuda.matmul.allow_tf32 = True
+    reset_launch_counts()
+    reset_path_stats()
+    train, trainer, spare = train_path(dev, store)
+    tcounts, tpaths = train.pop("launches"), train.pop("paths")
+    passes = 2 * TRAIN_LAYERS * (TRAIN_WARM + TRAIN_TIMED + 1)
+    log(f"train: launches {tcounts}; attention paths {tpaths} (expected "
+        f"{passes} plain_on_card)")
+    if any(tcounts.values()) or tpaths != {
+            ("flash_attention", "plain_on_card"): passes}:
+        raise AssertionError("the training path launched a kernel or took "
+                             "an attention path other than the chunked "
+                             "plain version")
+    train_profile(train, trainer, spare)
+    del trainer
+    train["cross_check"] = train_cross_check(
+        dev, {k: v[:1, :CHECK_SEQ].copy() for k, v in spare.items()})
+    torch.backends.cuda.matmul.allow_tf32 = False
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
     for k in kernels:
         by_path = {"feed": after[names[k["name"]]],
                    "read_path": rcounts[names[k["name"]]],
-                   "serve": scounts[names[k["name"]]]}
+                   "serve": scounts[names[k["name"]]],
+                   "train": tcounts[names[k["name"]]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1761,7 +2122,8 @@ def main() -> int:
         json.dump({"device": name, "nvidia_smi": smi, "kernels": kernels,
                    "feed": split, "layers": layers,
                    "cross_checked_rows": checked,
-                   "query_s": q_s, "read_path": read, "serve": serve},
+                   "query_s": q_s, "read_path": read, "serve": serve,
+                   "train": train},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

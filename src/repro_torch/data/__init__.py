@@ -1,3 +1,4 @@
-"""The LM data plane.  The tokenizer is ported; the stream packer
-(``repro.data.packing``) is ROADMAP Queue 1 item 9."""
+"""The LM data plane: the hash tokenizer and the stream packer (copies of
+``repro.data``)."""
+from repro_torch.data.packing import StreamPacker, pack_stream  # noqa: F401
 from repro_torch.data.tokenizer import HashTokenizer  # noqa: F401

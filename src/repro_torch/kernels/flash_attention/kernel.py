@@ -148,7 +148,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, T, Kv, D), H = Kv * G, float32 or
     bfloat16, D <= 128.  Returns (B, S, H, D) in q's dtype, computed by
-    the body ``body(dtype, D)`` names."""
+    the body ``body(dtype, D)`` names.  Forward only: under grad mode it
+    refuses q, k or v that require a gradient rather than return an
+    output detached from them."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention kernel is forward-only and "
+                           "got inputs that require grad; training "
+                           "attention takes models.layers._chunked_gqa")
     dev = check_same_cuda(q, k, v)
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "

@@ -1,14 +1,16 @@
 """Unified model API, mirroring ``repro.models.api`` for what the port has:
 
-    param_specs / init_params / param_count
+    param_specs / init_params / param_shapes / param_axes / param_count
+    loss(cfg, params, batch)              -- training
     apply(cfg, params, batch)             -- full logits
     prefill / decode_step                 -- serving
     cache_specs(cfg, batch, max_len)      -- decode-cache TensorSpecs
+    input_specs(cfg, shape)               -- per-(arch x shape) stand-ins
     pad_cache(cfg, cache, max_len)
 
 The dense family is ported.  The moe and vlm families of the transformer
 module and the ssm, hybrid and encdec modules raise ``NotImplementedError``
-(ROADMAP Queue 1 item 10); ``loss`` waits for the training slice.
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
 
@@ -36,8 +39,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Any:
     return P.init_tree(param_specs(cfg), gen, cfg.param_dtype)
 
 
+def param_shapes(cfg: ModelConfig) -> Any:
+    """``meta`` tensors of every parameter (no allocation)."""
+    return P.shape_tree(param_specs(cfg), cfg.param_dtype)
+
+
+def param_axes(cfg: ModelConfig) -> Any:
+    return P.axes_tree(param_specs(cfg))
+
+
 def param_count(cfg: ModelConfig) -> int:
     return P.param_count(param_specs(cfg))
+
+
+def loss(cfg: ModelConfig, params: Any, batch: Dict
+         ) -> Tuple[torch.Tensor, Dict]:
+    return module(cfg).loss(cfg, params, batch)
 
 
 def apply(cfg: ModelConfig, params: Any, batch: Dict):
@@ -71,3 +88,50 @@ def pad_cache(cfg: ModelConfig, cache: Dict, max_len: int) -> Dict:
             # (L, B, S, Kv, D): pad dim 2 at its end
             out[key] = torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, pad))
     return out
+
+
+# ---------------------------------------------------------------------------
+# per-(arch x shape) input stand-ins
+# ---------------------------------------------------------------------------
+
+def token_len(cfg: ModelConfig, seq_len: int) -> int:
+    """The token run of a ``seq_len`` context: all of it in the dense
+    family (``repro``'s vlm prepends patch embeddings)."""
+    module(cfg)
+    return seq_len
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[Dict, Dict]:
+    """(TensorSpec tree, logical-axes tree) for one sweep cell.
+
+    train   -> {tokens, targets}
+    prefill -> {tokens}
+    decode  -> {tokens (B,1), cache}  (one new token against a KV cache of
+               ``seq_len``)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        t = token_len(cfg, s)
+        return ({"tokens": T.TensorSpec((b, t), i32),
+                 "targets": T.TensorSpec((b, t), i32)},
+                {"tokens": ("batch", "seq"), "targets": ("batch", "seq")})
+    if shape.kind == "prefill":
+        t = token_len(cfg, s)
+        return ({"tokens": T.TensorSpec((b, t), i32)},
+                {"tokens": ("batch", "seq")})
+    if shape.kind == "decode":
+        cshapes, caxes = cache_specs(cfg, b, s)
+        return ({"tokens": T.TensorSpec((b, 1), i32), "cache": cshapes},
+                {"tokens": ("batch", None), "cache": caxes})
+    raise ValueError(shape.kind)
+
+
+def make_zero_inputs(cfg: ModelConfig, shape: ShapeSpec,
+                     device: DeviceLike = None) -> Dict:
+    """Zero tensors matching ``input_specs`` on ``device`` (None: the
+    card), for small configs."""
+    dev = resolve_device(device)
+    specs, _ = input_specs(cfg, shape)
+    return P.tree_map(lambda sp: torch.zeros(sp.shape, dtype=sp.dtype,
+                                             device=dev), specs)

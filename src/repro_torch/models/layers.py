@@ -6,20 +6,25 @@ embedding.  Mirrors ``repro.models.layers``; tensors keep its layouts
 Attention without segment ids over default positions (``positions`` is
 ``None``: arange from 0 on both sides) is what the flash kernel computes,
 with S <= T when causal.  ``_sdpa`` sends those calls to
-``kernels.flash_attention.ops``: the hand kernel for CUDA tensors, its
-plain version elsewhere.  Other calls (packed segments, explicit
-positions) run the plain computation below, and on the card they are
-recorded in ``repro_torch.kernels.path_stats()`` as ("flash_attention",
-"plain_on_card").  ``repro``'s ``_chunked_gqa`` is not ported: it is an
-XLA memory device for the same function.
+``kernels.flash_attention.ops`` (the hand kernel for CUDA tensors, its
+plain version elsewhere) unless autograd needs their gradient: the kernel
+is forward-only, as ``repro``'s Pallas kernel is.  Every other call
+(packed segments, explicit positions, training) runs ``repro``'s XLA
+path: ``_chunked_gqa``, an online-softmax scan over blocks of up to 1,024
+queries and keys, or the materialised softmax when a length has no such
+block.  On the card those are recorded in
+``repro_torch.kernels.path_stats()`` as ("flash_attention",
+"plain_on_card").
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import note_path, on_cuda
@@ -131,6 +136,13 @@ def causal_mask(positions_q: Array, positions_k: Array,
     return m
 
 
+def _pick_block(s: int, cap: int = 1024) -> Optional[int]:
+    for b in (1024, 512, 256, 128):
+        if b <= cap and s % b == 0 and s > b:
+            return b
+    return None
+
+
 def _sdpa(cfg: ModelConfig, q: Array, k: Array, v: Array,
           pos_q: Optional[Array], pos_k: Optional[Array],
           seg_q: Optional[Array], seg_k: Optional[Array],
@@ -138,13 +150,17 @@ def _sdpa(cfg: ModelConfig, q: Array, k: Array, v: Array,
     """Scaled-dot-product GQA attention.  Returns (B,S,H,D).
 
     ``pos_q``/``pos_k`` of ``None`` are default positions (arange from 0).
-    With default positions, no segment ids and S <= T when causal, this
-    is flash attention (top-left causal mask): the kernel on the card,
-    its plain version elsewhere.  Anything else is the plain masked
-    softmax, recorded as "plain_on_card" when it runs on the card."""
+    With default positions, no segment ids, S <= T when causal and no
+    gradient to carry, this is flash attention (top-left causal mask):
+    the kernel on the card, its plain version elsewhere.  Anything else
+    takes ``repro``'s choice: ``_chunked_gqa`` when both lengths have a
+    block, else the materialised masked softmax; on the card it is
+    recorded as "plain_on_card"."""
     s, t = q.shape[1], k.shape[1]
-    if (pos_q is None and pos_k is None and seg_q is None
-            and seg_k is None and (not causal or s <= t)):
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if (not needs_grad and pos_q is None and pos_k is None
+            and seg_q is None and seg_k is None and (not causal or s <= t)):
         return fa_ops.flash_attention(q, k, v, causal)
     note_path("flash_attention",
               "plain_on_card" if on_cuda(q) else "reference")
@@ -153,12 +169,80 @@ def _sdpa(cfg: ModelConfig, q: Array, k: Array, v: Array,
         pos_q = default_positions(b, s, q.device)
     if pos_k is None:
         pos_k = default_positions(b, t, k.device)
-    scores = _gqa_scores(q, k, cfg.q_per_kv)      # (B,Kv,G,S,T) fp32
-    if causal or seg_q is not None:
-        m = causal_mask(pos_q, pos_k, seg_q, seg_k) if causal else (
-            seg_q[:, :, None] == seg_k[:, None, :])
-        scores = torch.where(m[:, None, None], scores, NEG_INF)
-    return _gqa_out(torch.softmax(scores, dim=-1), v)
+    qb, kb = _pick_block(s), _pick_block(t)
+    if qb is None or kb is None:
+        scores = _gqa_scores(q, k, cfg.q_per_kv)      # (B,Kv,G,S,T) fp32
+        if causal or seg_q is not None:
+            m = causal_mask(pos_q, pos_k, seg_q, seg_k) if causal else (
+                seg_q[:, :, None] == seg_k[:, None, :])
+            scores = torch.where(m[:, None, None], scores, NEG_INF)
+        return _gqa_out(torch.softmax(scores, dim=-1), v)
+    return _chunked_gqa(cfg, q, k, v, pos_q, pos_k, seg_q, seg_k, qb, kb,
+                        causal)
+
+
+def _kv_step(qb: Array, kb: Array, vb: Array, mask: Optional[Array],
+             o: Array, m: Array, l: Array) -> Tuple[Array, Array, Array]:
+    """One key/value block of the online softmax.  qb: (B,Qb,Kv,G,D);
+    kb, vb: (B,Tb,Kv,D); mask: (B,Qb,Tb) or None; o: (B,Kv,G,Qb,D), m, l:
+    (B,Kv,G,Qb), all float32.  A block whose keys are all masked gives
+    p = 1 (NEG_INF - NEG_INF = 0) until a later block's alpha = 0 wipes
+    it, as in ``repro``; -inf would make that NaN."""
+    scale = qb.shape[-1] ** -0.5
+    sblk = torch.einsum("bqkgd,btkd->bkgqt", qb.float(), kb.float()) * scale
+    if mask is not None:
+        sblk = torch.where(mask[:, None, None], sblk, NEG_INF)
+    m_new = torch.maximum(m, sblk.amax(dim=-1))
+    p = torch.exp(sblk - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bkgqt,btkd->bkgqd", p, vb.float())
+    return o * alpha[..., None] + pv, m_new, l
+
+
+def _chunked_gqa(cfg: ModelConfig, q: Array, k: Array, v: Array,
+                 pos_q: Array, pos_k: Array,
+                 seg_q: Optional[Array], seg_k: Optional[Array],
+                 q_block: int, kv_block: int, causal: bool) -> Array:
+    """Online-softmax (flash-style) attention in plain PyTorch, ``repro``'s
+    double scan over query and key/value blocks with running (m, l, o)
+    statistics in float32, as loops.  Under autograd each key/value step
+    is checkpointed: backward keeps its carry, not its (B,Kv,G,Qb,Tb)
+    score blocks, and recomputes them one step at a time."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    kvh, g = cfg.num_kv_heads, cfg.q_per_kv
+    nq, nk = s // q_block, t // kv_block
+    qx = q.reshape(b, nq, q_block, kvh, g, d)
+    kx = k.reshape(b, nk, kv_block, kvh, d)
+    vx = v.reshape(b, nk, kv_block, kvh, d)
+    pqx, pkx = pos_q.reshape(b, nq, q_block), pos_k.reshape(b, nk, kv_block)
+    has_seg = seg_q is not None
+    if has_seg:
+        sqx = seg_q.reshape(b, nq, q_block)
+        skx = seg_k.reshape(b, nk, kv_block)
+    step = _kv_step
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, _kv_step, use_reentrant=False,
+                                 preserve_rng_state=False)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(nq):
+        o = torch.zeros((b, kvh, g, q_block, d), **f32)
+        m = torch.full((b, kvh, g, q_block), NEG_INF, **f32)
+        l = torch.zeros((b, kvh, g, q_block), **f32)
+        for j in range(nk):
+            mask = None
+            if causal:
+                mask = pqx[:, i, :, None] >= pkx[:, j, None, :]
+            if has_seg:
+                segm = sqx[:, i, :, None] == skx[:, j, None, :]
+                mask = segm if mask is None else (mask & segm)
+            o, m, l = step(qx[:, i], kx[:, j], vx[:, j], mask, o, m, l)
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
+    # (nq, B, Kv, G, Qb, D) -> (B, S, H, D)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
+    return out.to(v.dtype)
 
 
 def attention(cfg: ModelConfig, p: Dict, x: Array,
@@ -241,7 +325,7 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
     if cfg.mlp_variant != "swiglu":
         raise NotImplementedError(
             f"mlp_variant {cfg.mlp_variant!r} comes with the encdec family "
-            "(ROADMAP Queue 1 item 10)")
+            "(ROADMAP Queue 1 item 7)")
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": PSpec((d, f), ("embed", "ffn")),

@@ -3,7 +3,7 @@
 ``repro`` maps logical axis names to mesh axes and constrains activations
 with ``shard``.  The port runs one card for now, where every constraint
 is the identity; device meshes over ``torch.distributed`` are ROADMAP
-Queue 1 item 10.
+Queue 1 item 7.
 """
 
 from __future__ import annotations

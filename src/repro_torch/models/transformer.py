@@ -4,16 +4,22 @@
 Layer parameters are stacked along a leading "layers" axis, as in
 ``repro`` (so ``params_from_numpy`` carries them across unchanged), and
 the stack runs as a Python loop over that axis where ``repro`` scans.
-The moe and vlm families of ``repro``'s module raise here: they are
-ROADMAP Queue 1 item 10.  The training loss (``loss``, ``chunked_xent``)
-waits for the training slice.
+Under autograd each layer runs through ``remat_wrap``: ``"full"``
+checkpoints it (``repro``'s ``nothing_saveable``), ``"dots"`` saves the
+matmul outputs and recomputes the rest (``checkpoint_dots``).  The
+training loss never materialises (B, S, V) logits: ``chunked_xent``
+recomputes each chunk's in backward.  The moe and vlm families of
+``repro``'s module raise here: they are ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -27,7 +33,7 @@ def require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP Queue 1 item 10); the port serves dense models")
+            "(ROADMAP Queue 1 item 7); the port runs dense models")
 
 
 def stack_specs(specs: Any, n: int, axis: str = "layers") -> Any:
@@ -36,6 +42,31 @@ def stack_specs(specs: Any, n: int, axis: str = "layers") -> Any:
         return PSpec((n,) + s.shape, (axis,) + s.axes, s.init, s.scale,
                      s.dtype)
     return tree_map(one, specs)
+
+
+# the ops whose outputs "dots" keeps: every matmul and einsum lowers to one
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under the config's rematerialisation policy.  Without grad
+    mode there is nothing to save and ``fn`` runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return wrapped
 
 
 def layer_params(params: Dict, i: int) -> Dict:
@@ -85,10 +116,11 @@ def _forward(cfg: ModelConfig, params: Dict, x: Array,
              positions: Optional[Array],
              segment_ids: Optional[Array]) -> Tuple[Array, Array]:
     """Run the layer stack. Returns (hidden, mean aux loss)."""
+    block = remat_wrap(cfg, functools.partial(
+        _block_train, cfg, positions=positions, segment_ids=segment_ids))
     auxs = []
     for i in range(cfg.num_layers):
-        x, aux = _block_train(cfg, layer_params(params, i), x, positions,
-                              segment_ids)
+        x, aux = block(layer_params(params, i), x)
         auxs.append(aux)
     return x, torch.stack(auxs).mean()
 
@@ -98,7 +130,7 @@ def _inputs_embed(cfg: ModelConfig, params: Dict, tokens: Array,
     """Token embedding (the vlm family's frontend stub is not ported)."""
     if frontend is not None:
         raise NotImplementedError("frontend embeddings belong to the vlm "
-                                  "family (ROADMAP Queue 1 item 10)")
+                                  "family (ROADMAP Queue 1 item 7)")
     return L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
 
 
@@ -122,6 +154,57 @@ def hidden_states(cfg: ModelConfig, params: Dict, batch: Dict
                       batch.get("segment_ids"))
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
     return x, aux
+
+
+def loss(cfg: ModelConfig, params: Dict, batch: Dict,
+         aux_weight: float = 0.01) -> Tuple[Array, Dict]:
+    """Training loss.  The hidden states are unembedded in sequence chunks
+    (recomputed in the backward pass), so the (B,S,V) logits never
+    exist at once."""
+    hidden, aux = hidden_states(cfg, params, batch)
+    ce, denom = chunked_xent(cfg, params["embed"], hidden,
+                             batch["targets"], batch.get("loss_mask"))
+    total = ce + aux_weight * aux
+    return total, {"loss": ce, "aux": aux, "tokens": denom}
+
+
+def _xent_sum(cfg: ModelConfig, embed_params: Dict, hidden: Array,
+              targets: Array, mask: Array) -> Tuple[Array, Array]:
+    """(sum of the masked float32 NLL, sum of the mask) of one chunk."""
+    logits = L.unembed(cfg, embed_params, hidden)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def chunked_xent(cfg: ModelConfig, embed_params: Dict, hidden: Array,
+                 targets: Array, mask: Optional[Array],
+                 chunk: int = 512) -> Tuple[Array, Array]:
+    """Mean cross-entropy over the mask and its denominator max(sum of
+    the mask, 1).  A sequence of more than one ``chunk`` that divides it
+    is unembedded chunk by chunk, each chunk checkpointed under autograd
+    so backward recomputes its float32 logits."""
+    b, s, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    mask = mask.float()
+    if s % chunk != 0 or s <= chunk:
+        tot, cnt = _xent_sum(cfg, embed_params, hidden, targets, mask)
+        denom = torch.clamp(cnt, min=1.0)
+        return tot / denom, denom
+    fn = functools.partial(_xent_sum, cfg, embed_params)
+    if torch.is_grad_enabled():
+        fn = functools.partial(checkpoint, fn, use_reentrant=False,
+                               preserve_rng_state=False)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        a, n = fn(hidden[:, sl], targets[:, sl], mask[:, sl])
+        tot, cnt = tot + a, cnt + n
+    denom = torch.clamp(cnt, min=1.0)
+    return tot / denom, denom
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port on the card: each hand CUDA kernel against its plain PyTorch
 version, the device routing rules, a small feed on the card against the
-same feed on the CPU, and a 2-layer serve on the card against the CPU.  Every test here is marked ``cuda`` and skips
+same feed on the CPU, a 2-layer serve and train steps on the card against the
+CPU.  Every test here is marked ``cuda`` and skips
 without a CUDA device; this file imports neither jax nor ``repro``, so it
 runs on a machine that has only PyTorch:
 
@@ -517,3 +518,134 @@ def test_two_layer_serve_on_card_matches_cpu(card, dtype):
         want, _ = api.apply(cfg, cpu_params, {"tokens": tok})
         rms = (got.cpu() - want).pow(2).mean().sqrt() / want.std()
         assert float(rms) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+# Card against CPU after one train step from the same state
+# (chip_smoke.train_check_readings: |d loss|, |d grad_norm| / grad_norm,
+# the worst leaf's |d update| / |update|).  float32: the two devices sum
+# in other orders (TF32 off), limits far above that rounding.  bf16:
+# scripts/train_step_spread.py measured this config on an H100 (3 seeds,
+# seed 0 is this test's): sound at most 4.3e-6, 8.1e-5 and 0.0937; with
+# the attention output detached each trial's grad_norm at least 0.892 and
+# update 43.2; with the segment mask dropped at least 0.0050, 0.544 and
+# 1.52.  The limits lie between the two.
+TRAIN_TEST_TOL = {"float32": {"loss": 1e-4, "grad_norm": 1e-4,
+                              "update": 1e-2},
+                  "bfloat16": {"loss": 1e-3, "grad_norm": 0.05,
+                               "update": 0.5}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(card, dtype):
+    """The smoke deepseek-coder-33b (2 layers, remat "full") one step on a
+    packed row of 256 tokens (chunked attention) on the card and on the
+    CPU from the same state: loss, grad_norm and every updated leaf.  No
+    kernel launches; every attention is the plain chunked version."""
+    from repro_torch import kernels
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("deepseek-coder-33b").replace(
+        remat="full", dtype=dtype, param_dtype=dtype)
+    kernels.reset_launch_counts()
+    kernels.reset_path_stats()
+    r, _ = chip_smoke.train_check_readings(card, chip_smoke.packed_row(256), 0,
+                                           cfg=cfg)
+    assert not any(kernels.launch_counts().values())
+    assert kernels.path_stats()[("flash_attention", "plain_on_card")] == \
+        2 * cfg.num_layers
+    tol = TRAIN_TEST_TOL[dtype]
+    assert all(r[k] <= tol[k] for k in tol), r
+
+
+def test_every_gradient_leaf_non_zero_on_card(card):
+    """bf16 at full head_dim 128: the first batch's gradient is finite and
+    non-zero in every leaf (a detached attention would zero wq, wk and
+    wv), and equals the CPU's to bf16's rounding."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.params import tree_flatten, tree_map
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.steps import init_train_state
+    cfg = smoke_config("deepseek-coder-33b").replace(
+        remat="full", dtype="bfloat16", param_dtype="bfloat16", head_dim=128)
+    st = init_train_state(cfg, OptConfig(),
+                          torch.Generator(device=card).manual_seed(1))
+    step = make_train_step(cfg, OptConfig())
+    row = chip_smoke.packed_row(512, seed=1)
+    _, _, grads = step.accumulate(st["params"], row)
+    chip_smoke.check_grads(grads)
+    _, _, cpu_grads = step.accumulate(
+        tree_map(lambda x: x.cpu(), st["params"]), row)
+    for g, c in zip(tree_flatten(grads)[0], tree_flatten(cpu_grads)[0]):
+        rel = (torch.linalg.vector_norm(g.float().cpu() - c.float())
+               / torch.linalg.vector_norm(c.float()))
+        assert float(rel) < 0.1
+
+
+def test_trainer_restarts_on_card(card, tmp_path):
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import smoke_config
+    from repro_torch.train import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = smoke_config("deepseek-coder-33b")
+    tcfg = TrainerConfig(steps=8, ckpt_dir=str(tmp_path), ckpt_every=3,
+                         log_every=1, max_restarts=1)
+    trainer = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=1), tcfg,
+                      device=card)
+    seen = []
+
+    def fault_hook(step):
+        seen.append(step)
+        if step == 4 and seen.count(4) == 1:
+            raise RuntimeError("injected failure")
+    rng = np.random.default_rng(0)
+    batches = ({"tokens": t, "targets": np.roll(t, -1, 1)} for t in (
+        rng.integers(3, cfg.vocab_size, (2, 32)).astype(np.int32)
+        for _ in range(50)))
+    hist = trainer.run(batches, fault_hook=fault_hook)
+    assert trainer.restarts == 1 and int(trainer.state["step"]) == 8
+    assert seen == [0, 1, 2, 3, 4, 3, 4, 5, 6, 7]
+    assert trainer.state["params"]["embed"]["tok"].is_cuda
+    assert latest_step(str(tmp_path)) == 8
+    assert all(np.isfinite(h["loss"]) for h in hist)
+
+
+def test_lm_data_plane_feeds_the_trainer_on_card(card):
+    """UDF2 -> tokenize -> filter -> packer on the card feeds 5 steps."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import FeedManager, RefStore
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.train import OptConfig
+    from repro_torch.train.data_feed import FeedDataSource
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    store = RefStore()
+    Q.make_reference_tables(store, scale=0.01, seed=7)
+    cfg = smoke_config("deepseek-coder-33b")
+    src = FeedDataSource(FeedManager(store, device=card),
+                         vocab_size=cfg.vocab_size, seq_len=256,
+                         batch_size=2, total_records=4000, frame_size=512,
+                         safety_filter=True, num_partitions=2)
+    trainer = Trainer(cfg, OptConfig(lr=1e-3, warmup_steps=1),
+                      TrainerConfig(steps=5, log_every=1), device=card)
+    try:
+        hist = trainer.run(iter(src))
+    finally:
+        src.close()
+    assert int(trainer.state["step"]) == 5 and len(hist) == 5
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert src.filtered >= 0 and len(trainer.step_times) == 5
+
+
+def test_flash_kernel_refuses_inputs_that_require_grad(card):
+    q = torch.randn(1, 64, 4, 16, device=card, requires_grad=True)
+    kv = torch.randn(1, 64, 2, 16, device=card)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa_kernel.flash_attention(q, kv, kv)
+    assert launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        out = fa_kernel.flash_attention(q, kv, kv)
+    assert not out.requires_grad and launch_counts()["flash_attention"] == 1

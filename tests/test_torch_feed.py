@@ -186,7 +186,11 @@ def test_port_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.segment_reduce, "
             "repro_torch.kernels.segment_topk, "
             "repro_torch.kernels.flash_attention, repro_torch.models.api, "
-            "repro_torch.serve, repro_torch.launch.serve;"
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.train, repro_torch.train.data_feed, "
+            "repro_torch.train.trainer, repro_torch.train.compression, "
+            "repro_torch.ckpt, repro_torch.data.packing, "
+            "repro_torch.runtime, repro_torch.launch.train;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')];"
