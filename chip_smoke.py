@@ -60,10 +60,25 @@ Phases, each fatal on failure:
      exact step count, one step profiled; no hand kernel may launch and
      every attention must be the chunked plain version ("plain_on_card");
      one step of a 1-layer model on a packed row of 1,024 tokens is held
-     to the same step on the CPU.
-Each path (4-6, 7, 8, 9) runs with the launch counts set to 0 just before
-it and read just after; the kernels line gives each kernel's launches on
-the four paths (feed, read_path, serve, train) and their sum.
+     to the same step on the CPU;
+ 10-12. serving three more families whole (full width and depth, seeded
+     float32 parameters, after phase 9's state is freed) through
+     ServingEngine: olmoe-1b-7b (moe, 16 layers, 64 experts, 8 a token;
+     12 requests of 256-1,536 tokens, 32 new), mamba2-130m (ssm, 24
+     layers; 12 requests of whole 256-token chunks; no kernel may
+     launch) and internvl2-2b (vlm, 24 layers after a 256-row zero
+     frontend; 4 requests, 16 new).  Flash launches must be 2 x
+     attention layers x prefills, no attention on the plain version;
+     each phase prints tokens/s, prefill and decode ms, a profiled
+     prefill, apply and decode step, and a teacher-forced CPU cross-check
+     (olmoe cut to 2 layers); olmoe the share of routed pairs dropped for
+     capacity, its decode time against the expert casts' floor and the
+     router's card-vs-CPU agreement; mamba2 that float32 recurrent decode
+     continues the chunked prefill at the chunk of 256.
+Each path (4-6, 7, 8, 9, 10, 11, 12) runs with the launch counts set to
+0 just before it and read just after; the kernels line gives each
+kernel's launches on the paths (feed, read_path, serve, train,
+serve_moe, serve_ssm, serve_vlm) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -71,6 +86,8 @@ Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import itertools
 import json
 import os
@@ -736,12 +753,17 @@ def weigh_buckets(dev, hist, rng):
     return {"by_bucket": out, "total_ms": total}
 
 
-# (B, S, T, H, Kv, D, causal, dtype): G = H / Kv in {1, 4, 7}, D in {64,
-# 112, 128} (bf16: 64 and 128 take the wgmma body, 112 mma_sync, 72 the
-# CUDA-core body), S off the 128-, 64- and 32-row tiles, causal S < T
-# (top-left), non-causal S < T, one row and one key
+# (B, S, T, H, Kv, D, causal, dtype): G = H / Kv in {1, 2, 4, 7}, D in
+# {64, 112, 128} (bf16: 64 and 128 take the wgmma body, 112 mma_sync, 72
+# the CUDA-core body), S off the 128-, 64- and 32-row tiles, causal S < T
+# (top-left), non-causal S < T, one row and one key; phases 10 and 12's
+# shapes: olmoe's G = 1 at D = 128 (its longest bucketed prompt), and
+# internvl2's 256 frontend rows before a bucket of 16 and its longest
 FLASH_CASES = [
     (1, 1536, 1536, 56, 8, 128, True, "bfloat16"),   # the serving prefill
+    (1, 1552, 1552, 16, 16, 128, True, "bfloat16"),
+    (1, 272, 272, 16, 8, 128, True, "bfloat16"),
+    (1, 1792, 1792, 16, 8, 128, True, "bfloat16"),
     (2, 1000, 1000, 56, 8, 128, True, "bfloat16"),
     (1, 1, 1, 56, 8, 128, True, "bfloat16"),
     (2, 300, 300, 8, 8, 64, True, "bfloat16"),
@@ -1336,15 +1358,17 @@ SERVE_TOL = 4.2              # max |d logit| / std, and the greedy gap
 SERVE_RMS_TOL = 1.0          # rms(d logit) / std
 
 
-def serve_requests(cfg):
-    """12 prompts of 256-1,536 tokens from a seeded numpy generator."""
+def serve_requests(cfg, n=SERVE_REQUESTS, new=SERVE_NEW, multiple=1):
+    """``n`` prompts of 256-1,536 tokens (multiples of ``multiple``) from
+    a seeded numpy generator, ``new`` tokens each."""
     from repro_torch.serve import Request
     rng = np.random.default_rng(SERVE_SEED + 1)
-    lo, hi = SERVE_PROMPT_LEN
+    lo, hi = (x // multiple for x in SERVE_PROMPT_LEN)
     return [Request(rng.integers(16, cfg.vocab_size,
-                                 int(rng.integers(lo, hi + 1))).tolist(),
-                    max_new_tokens=SERVE_NEW, stop_at_eos=False)
-            for _ in range(SERVE_REQUESTS)]
+                                 int(rng.integers(lo, hi + 1)) * multiple
+                                 ).tolist(),
+                    max_new_tokens=new, stop_at_eos=False)
+            for _ in range(n)]
 
 
 def serve_warmup(cfg, params, dev):
@@ -1359,23 +1383,24 @@ def serve_warmup(cfg, params, dev):
     torch.cuda.synchronize()
 
 
-def serve_path(cfg, params, dev):
-    """The continuous-batching engine over SERVE_REQUESTS requests."""
+def serve_path(cfg, params, dev, requests=None, tag="serve"):
+    """The continuous-batching engine over ``requests`` (default:
+    serve_requests(cfg))."""
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
                         max_len=SERVE_MAX_LEN, prompt_bucket=SERVE_BUCKET,
                         device=dev)
-    reqs = [eng.submit(r) for r in serve_requests(cfg)]
+    reqs = [eng.submit(r) for r in (requests or serve_requests(cfg))]
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if len(done) != SERVE_REQUESTS or any(
-            len(r.tokens) != SERVE_NEW
+    if len(done) != len(reqs) or any(
+            len(r.tokens) != r.max_new_tokens
             or not all(0 <= x < cfg.vocab_size for x in r.tokens)
             for r in reqs):
-        raise AssertionError("serve: a request did not get its "
-                             f"{SERVE_NEW} tokens")
+        raise AssertionError(f"{tag}: a request did not get its new "
+                             "tokens")
     new = sum(len(r.tokens) for r in reqs)
     prompt = sum(len(r.prompt) for r in reqs)
     res = {"requests": len(done), "prompt_tokens": prompt,
@@ -1385,7 +1410,7 @@ def serve_path(cfg, params, dev):
            "decode_ms_per_step": eng.decode_s / eng.decode_steps * 1e3,
            "new_tokens_per_s": new / wall,
            "prompt_and_new_tokens_per_s": (prompt + new) / wall}
-    log(f"serve: {len(done)} requests ({prompt} prompt tokens, {new} new) "
+    log(f"{tag}: {len(done)} requests ({prompt} prompt tokens, {new} new) "
         f"in {wall:.3f} s on {SERVE_SLOTS} slots: "
         f"{res['new_tokens_per_s']:.1f} new tokens/s; prefill "
         f"{res['prefill_ms_per_request']:.2f} ms per request (prefill + "
@@ -1394,17 +1419,20 @@ def serve_path(cfg, params, dev):
     return res
 
 
-def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
+def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1], flash=True,
+                    tag="serve"):
     """Under torch.profiler: one prefill of the longest prompt and one
     first-token apply of it (the flash kernel's device time against all
-    kernels' and the wall), and one decode step of all slots over
-    n-token caches (device busy share)."""
+    kernels' and the wall; with ``flash``, all of it must be the wgmma
+    body's), and one decode step of all slots over n-token caches
+    (device busy share)."""
     from repro_torch.models import api
+    from repro_torch.models.params import tree_map
     tok = torch.randint(16, cfg.vocab_size, (1, n), dtype=torch.int32,
                         device=dev)
-    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-             for k, s in api.cache_specs(cfg, SERVE_SLOTS,
-                                         SERVE_MAX_LEN)[0].items()}
+    cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                           device=dev),
+                     api.cache_specs(cfg, SERVE_SLOTS, SERVE_MAX_LEN)[0])
     step = torch.full((SERVE_SLOTS, 1), 17, dtype=torch.int32, device=dev)
     runs = {"prefill": lambda: api.prefill(cfg, params, tok),
             "apply": lambda: api.apply(cfg, params, {"tokens": tok})}
@@ -1416,15 +1444,15 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
         dev_ms, flash_ms = kernel_device_ms(prof), kernel_device_ms(
             prof, "flash_")
         wgmma_ms = kernel_device_ms(prof, "flash_wgmma")
-        if not 0 < wgmma_ms == flash_ms:
-            raise AssertionError(f"serve: {name}'s flash kernels ran "
+        if not (0 < wgmma_ms == flash_ms if flash else flash_ms == 0):
+            raise AssertionError(f"{tag}: {name}'s flash kernels ran "
                                  f"{flash_ms:.3f} ms on the device, "
                                  f"{wgmma_ms:.3f} ms of it the wgmma body")
         out[name] = {"tokens": n, "wall_ms": wall_ms, "device_ms": dev_ms,
                      "flash_ms": flash_ms,
                      "flash_share_of_device": flash_ms / dev_ms,
                      "device_busy_share": dev_ms / wall_ms}
-        log(f"serve: {name} of {n} tokens profiled: flash kernel "
+        log(f"{tag}: {name} of {n} tokens profiled: flash kernel "
             f"{flash_ms:.3f} ms of {dev_ms:.3f} ms device time (share "
             f"{flash_ms / dev_ms:.4f}), wall {wall_ms:.2f} ms, device busy "
             f"{dev_ms / wall_ms:.4f}")
@@ -1439,7 +1467,7 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
     out["decode_step"] = {"slots": SERVE_SLOTS, "cache_len": n,
                           "wall_ms": wall_ms, "device_ms": dev_ms,
                           "device_busy_share": dev_ms / wall_ms}
-    log(f"serve: decode step of {SERVE_SLOTS} slots at length {n} "
+    log(f"{tag}: decode step of {SERVE_SLOTS} slots at length {n} "
         f"profiled: device {dev_ms:.3f} ms of {wall_ms:.2f} ms wall, "
         f"device busy {dev_ms / wall_ms:.4f}")
     return out
@@ -1943,6 +1971,317 @@ def train_cross_check(dev, row, cfg=None):
     return r
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: serving the moe, ssm and vlm families whole
+# ---------------------------------------------------------------------------
+
+# phase: the arch at full width and depth (float32 parameters, as their
+# configs say; seeded), its traffic (requests, new tokens, prompt lengths
+# a multiple of `multiple` in 256-1,536), and the CPU cross-check: the
+# layers it runs (the card runs the same cut) and its prompts.  The
+# attention families' checks are cut to 2 layers: at internvl2's full
+# depth the random-init model's near one-hot attention (repro's init
+# rule) turns bf16 rounding into logits as far from the CPU's as a
+# planted fault's (scripts/family_serve_spread.py: rms/std 1.0-1.26
+# sound, 1.33-1.47 faulty).  mamba2 is checked whole, at the lengths it
+# serves (whole chunks of 256), 512 crossing a chunk boundary
+FAMILY_SERVE = {
+    "moe": {"phase": 10, "arch": "olmoe-1b-7b", "params": 6_919_096_320,
+            "requests": 12, "new": 32, "multiple": 1, "check_layers": 2,
+            "check_prompts": CHECK_PROMPTS},
+    "ssm": {"phase": 11, "arch": "mamba2-130m", "params": 128_940_480,
+            "requests": 12, "new": 32, "multiple": 256, "check_layers": 24,
+            "check_prompts": (256, 512)},
+    "vlm": {"phase": 12, "arch": "internvl2-2b", "params": 1_699_598_336,
+            "requests": 4, "new": 16, "multiple": 1, "check_layers": 2,
+            "check_prompts": CHECK_PROMPTS},
+}
+# Card against CPU (cross_check_readings: max|d|/std, rms/std and greedy
+# gap/std per prompt and step).  scripts/family_serve_spread.py measured
+# each family's check config on the card (3 trials of prompts, sound, and
+# with two faults planted on the card; NVIDIA H100 80GB HBM3, 700 W): the
+# worst sound reading, then the least of each faulty trial's largest:
+#   moe  max 0.2648 | renorm 0.3949, overflow 0.4607;  rms 0.0591 |
+#        0.0942, 0.0995;  gap 0.1162 | 0.0164, 0.0195 (not separable);
+#   ssm  max 0.4839 | chunkstate 0.3459 (not separable here: the carried
+#        state has decayed by the checked positions; the continuation
+#        check below catches it), convcache 6.2954;  rms 0.1017 | 0.0726,
+#        1.3613;  gap 0.3149 | 0.0000, 4.8451;
+#   vlm  max 0.2790 | heads 6.3092, len 6.9893;  rms 0.0624 | 1.3536,
+#        1.4223;  gap 0.1208 | 5.0751, 5.8409.
+# Each limit lies between the sound and the faulty readings where they
+# separate; the moe gap limit only bounds a gross failure.
+FAMILY_TOL = {"moe": {"max": 0.33, "rms": 0.077, "greedy_gap": 1.0},
+              "ssm": {"max": 3.0, "rms": 0.7, "greedy_gap": 2.5},
+              "vlm": {"max": 3.0, "rms": 0.7, "greedy_gap": 2.5}}
+# recurrent decode against the chunked apply (float32, phase 11): the
+# largest max |d logit| / std over the decoded positions; the spread
+# script read 0.0002959 sound, 5.349 with the state not carried across
+# chunks and 5.747 with zero conv tails
+SSM_CONTINUE_TOL = 1e-2
+SSM_CONTINUE = (256, 512)      # prefill 256, decode to 512; prefill 512
+# leaves the models use in float32; every other leaf is cast to the
+# activation dtype at each use
+F32_LEAVES = ("router", "dt_bias", "A_log", "D")
+
+
+def host_threads(tag) -> dict:
+    """The Python threads alive in this process and torch's intra-op
+    thread count, logged: the serving phases are host-bound, and a thread
+    left running by an earlier phase competes for the interpreter."""
+    names = sorted(t.name for t in threading.enumerate())
+    log(f"{tag}: {len(names)} Python threads alive ({', '.join(names)}); "
+        f"torch intra-op threads {torch.get_num_threads()}")
+    return {"python_threads": names, "torch_threads": torch.get_num_threads()}
+
+
+def family_model(fam, dev):
+    """The phase's config and its seeded parameters on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    spec = FAMILY_SERVE[fam]
+    cfg = get_config(spec["arch"])
+    t0 = time.perf_counter()
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = api.param_count(cfg)
+    if n != spec["params"]:
+        raise AssertionError(f"{spec['arch']}: {n:,} parameters, not "
+                             f"{spec['params']:,}")
+    log(f"serve {fam}: {spec['arch']} whole, {cfg.num_layers} layers at "
+        f"full width, {n:,} parameters ({cfg.param_dtype}) drawn in "
+        f"{init_s:.3f} s")
+    return cfg, params, init_s
+
+
+def depth_cut(cfg, params, layers):
+    """The first ``layers`` layers (views) and the embedding."""
+    from repro_torch.models.params import tree_map
+    if layers == cfg.num_layers:
+        return cfg, params
+    return (cfg.replace(num_layers=layers),
+            {"embed": params["embed"],
+             "layers": tree_map(lambda x: x[:layers], params["layers"])})
+
+
+def cpu_copy(params, dtype):
+    """The CPU's copy of card parameters: every leaf the model casts to
+    the activation ``dtype`` at each use is cast once here (the same
+    values; the CPU then skips re-casting float32 weights at every
+    forward), F32_LEAVES stay as they are."""
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if name in F32_LEAVES:
+            return tree.cpu()
+        return tree.to(dtype).cpu()
+    return walk(params)
+
+
+@contextlib.contextmanager
+def moe_drop_tally():
+    """Counts the routed (token, expert) pairs of every MoE call and, on
+    the device, those kept within capacity, split into prefill groups
+    (more tokens than slots) and decode groups."""
+    from repro_torch.models import moe as M
+    orig = M.expert_slots
+    tally = {"prefill": [0, []], "decode": [0, []]}
+
+    def counted(idx, e, cap):
+        order, keep, slot = orig(idx, e, cap)
+        part = tally["prefill" if idx.shape[1] > SERVE_SLOTS else "decode"]
+        part[0] += keep.numel()
+        part[1].append(keep.sum())
+        return order, keep, slot
+    M.expert_slots = counted
+    try:
+        yield tally
+    finally:
+        M.expert_slots = orig
+
+
+def drop_shares(tally) -> dict:
+    out = {}
+    for part, (pairs, kept) in tally.items():
+        k = int(torch.stack(kept).sum()) if kept else 0
+        out[part] = {"pairs": pairs, "dropped": pairs - k,
+                     "share": (pairs - k) / pairs if pairs else 0.0}
+    pairs = sum(v["pairs"] for v in out.values())
+    dropped = sum(v["dropped"] for v in out.values())
+    out["all"] = {"pairs": pairs, "dropped": dropped,
+                  "share": dropped / pairs if pairs else 0.0}
+    return out
+
+
+def router_agreement(cfg, params, dev, prompts, seed):
+    """Each MoE layer's input of the card's prefill of ``prompts`` (drawn
+    as cross_check_readings draws them): the experts chosen from it on
+    the card and on the CPU (the same input and router, copied).
+    Returns the share of (token, slot) choices that are equal."""
+    from repro_torch.models import api
+    from repro_torch.models import moe as M
+    rng = np.random.default_rng(seed)
+    seen, orig = [], M.moe_ffn
+
+    def capture(cfg_, p, x):
+        seen.append((p["router"], x))
+        return orig(cfg_, p, x)
+    M.moe_ffn = capture
+    try:
+        for plen in prompts:
+            prompt = rng.integers(16, cfg.vocab_size, (1, plen)).astype(
+                np.int32)
+            api.prefill(cfg, params, t(prompt, dev))
+    finally:
+        M.moe_ffn = orig
+    equal = total = 0
+    for router, x in seen:
+        _, card = M._route(torch.matmul(x.float(), router),
+                           cfg.experts_per_token)
+        _, cpu = M._route(torch.matmul(x.cpu().float(), router.cpu()),
+                          cfg.experts_per_token)
+        equal += int((card.cpu() == cpu).sum())
+        total += cpu.numel()
+    return {"layers_seen": len(seen), "choices": total, "equal": equal,
+            "share": equal / total}
+
+
+def family_cross_check(fam, cfg, params, dev, seed=SERVE_SEED + 2):
+    """The phase's check config on the card and on the CPU
+    (cross_check_readings), the rows and their worst readings."""
+    from repro_torch.models.params import torch_dtype
+    spec = FAMILY_SERVE[fam]
+    ccfg, cparams = depth_cut(cfg, params, spec["check_layers"])
+    cpu_params = cpu_copy(cparams, torch_dtype(cfg.dtype))
+    rows = cross_check_readings(ccfg, cparams, cpu_params, dev,
+                                spec["check_prompts"], seed)
+    worst = {k: max(r[k] for r in rows) for k in ("max", "rms",
+                                                  "greedy_gap")}
+    return ccfg, cparams, rows, worst
+
+
+def ssm_continuation(cfg, params, dev):
+    """Recurrent decode continues the chunked prefill (the invariant of
+    tests/test_arch_smoke.py's SSD test) at the published chunk of 256,
+    in float32: a prefill of SSM_CONTINUE[0] tokens, then decode steps to
+    SSM_CONTINUE[1], each step's logits against the chunked ``apply`` of
+    all SSM_CONTINUE[1] tokens at the same position (so the positions
+    just past the chunk boundary, which hold the carried state and conv
+    tails, count).  Returns the largest max |d logit| / std."""
+    from repro_torch.models import api
+    cfg32 = cfg.replace(dtype="float32")
+    a, b = SSM_CONTINUE
+    tok = torch.randint(16, cfg.vocab_size, (1, b), dtype=torch.int32,
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(SERVE_SEED + 4))
+    full, _ = api.apply(cfg32, params, {"tokens": tok})
+    cache, logits = api.prefill(cfg32, params, tok[:, :a])
+    worst = []
+    for i in range(a, b + 1):
+        ref = full[:, i - 1]
+        worst.append((logits - ref).abs().max() / ref.std())
+        if i < b:
+            logits, cache = api.decode_step(cfg32, params, cache,
+                                            tok[:, i:i + 1])
+    return float(torch.stack(worst).max())
+
+
+def family_phase(fam, dev):
+    """Phases 10-12: the family's model whole through ServingEngine, from
+    launch counts and path stats of 0, then its profile and its CPU
+    cross-check.  Returns (measurements, the serving run's launches)."""
+    from repro_torch.kernels import (launch_counts, path_stats,
+                                     reset_launch_counts, reset_path_stats)
+    spec = FAMILY_SERVE[fam]
+    tag = f"serve {fam}"
+    threads = host_threads(tag)
+    cfg, params, init_s = family_model(fam, dev)
+    serve_warmup(cfg, params, dev)
+    reqs = serve_requests(cfg, spec["requests"], spec["new"],
+                          spec["multiple"])
+    reset_launch_counts()
+    reset_path_stats()
+    with (moe_drop_tally() if fam == "moe"
+          else contextlib.nullcontext()) as tally:
+        res = serve_path(cfg, params, dev, reqs, tag=tag)
+    counts, paths = launch_counts(), path_stats()
+    attn = 0 if fam == "ssm" else cfg.num_layers
+    want = {n: 0 for n in counts}
+    want["flash_attention"] = 2 * attn * res["prefills"]
+    log(f"{tag}: launches {counts} (expected {want}); attention paths "
+        f"{paths}")
+    if counts != want or paths.get(("flash_attention", "plain_on_card")) \
+            or (fam == "ssm" and paths):
+        raise AssertionError(f"{tag}: the serving path's launches or "
+                             "attention paths are not the expected ones")
+    res.update({"arch": spec["arch"], "layers": cfg.num_layers,
+                "parameters": spec["params"], "init_s": init_s,
+                "host": threads})
+    if tally is not None:
+        res["moe_drops"] = drop_shares(tally)
+        d = res["moe_drops"]
+        log(f"{tag}: routed pairs dropped for capacity: prefill "
+            f"{d['prefill']['dropped']} of {d['prefill']['pairs']} "
+            f"({d['prefill']['share']:.4f}), decode "
+            f"{d['decode']['dropped']} of {d['decode']['pairs']}, all "
+            f"{d['all']['share']:.4f}")
+    res["profile"] = profile_serving(cfg, params, dev, flash=attn > 0,
+                                     tag=tag)
+    if fam == "moe":
+        # repro casts every expert leaf to bf16 at every call: per decode
+        # step each layer reads 4 and writes 2 bytes of each expert weight
+        nbytes = (cfg.num_layers * 3 * cfg.num_experts * cfg.d_model
+                  * cfg.d_ff * 6)
+        floor = nbytes / PEAK_BYTES_S * 1e3
+        res["decode_floor"] = {"bytes": nbytes, "ms": floor,
+                               "decode_ms_over_floor":
+                               res["decode_ms_per_step"] / floor}
+        log(f"{tag}: decode {res['decode_ms_per_step']:.2f} ms a step "
+            f"against the expert casts' floor {floor:.2f} ms "
+            f"({nbytes / 1e9:.1f} GB at {PEAK_BYTES_S / 1e12:.2f} TB/s): "
+            f"{res['decode_ms_per_step'] / floor:.2f}x")
+    t0 = time.perf_counter()
+    ccfg, cparams, rows, worst = family_cross_check(fam, cfg, params, dev)
+    tol = FAMILY_TOL[fam]
+    bad = [r for r in rows if not all(r[k] <= tol[k] for k in tol)]
+    log(f"{tag} cross-check: {ccfg.num_layers} of {cfg.num_layers} layers, "
+        f"prompts {spec['check_prompts']} x {CHECK_STEPS} decode steps, "
+        f"card vs CPU (teacher-forced): worst max|d|/std "
+        f"{worst['max']:.4f}, rms/std {worst['rms']:.4f}, greedy gap/std "
+        f"{worst['greedy_gap']:.4f} (limits {tol}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"{tag} cross-check beyond {tol}: {bad[:3]}")
+    res["cross_check"] = {**worst, "check_layers": ccfg.num_layers,
+                          "seconds": time.perf_counter() - t0}
+    if fam == "moe":
+        ag = router_agreement(ccfg, cparams, dev, spec["check_prompts"],
+                              SERVE_SEED + 2)
+        res["router_agreement"] = ag
+        log(f"{tag}: router agreement card vs CPU on the same layer "
+            f"inputs: {ag['equal']} of {ag['choices']} (token, slot) "
+            f"choices equal ({ag['share']:.6f}) over {ag['layers_seen']} "
+            "layer calls")
+    if fam == "ssm":
+        d = ssm_continuation(cfg, params, dev)
+        res["continuation"] = {"max_over_std": d, "tol": SSM_CONTINUE_TOL,
+                               "prefill": SSM_CONTINUE[0],
+                               "decoded_to": SSM_CONTINUE[1]}
+        log(f"{tag}: float32 recurrent decode from a {SSM_CONTINUE[0]}-"
+            f"token prefill to {SSM_CONTINUE[1]} against the chunked apply "
+            f"of {SSM_CONTINUE[1]} tokens, position by position: max|d|/std "
+            f"{d:.3g} (tol {SSM_CONTINUE_TOL})")
+        if not d <= SSM_CONTINUE_TOL:
+            raise AssertionError(f"{tag}: recurrent decode does not "
+                                 "continue the chunked prefill")
+    del params, cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -2062,9 +2401,11 @@ def main() -> int:
         f"layers, {api.param_count(cfg):,} parameters ({cfg.param_dtype}) "
         f"drawn in {init_s:.3f} s")
     serve_warmup(cfg, params, dev)
+    threads = host_threads("serve")
     reset_launch_counts()
     reset_path_stats()
     serve = serve_path(cfg, params, dev)
+    serve["host"] = threads
     scounts = launch_counts()
     spaths = path_stats()
     want = {n: 0 for n in scounts}
@@ -2104,6 +2445,16 @@ def main() -> int:
     train["cross_check"] = train_cross_check(
         dev, {k: v[:1, :CHECK_SEQ].copy() for k, v in spare.items()})
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phases 10-12, serving the moe, ssm and vlm families whole, each from
+    # counts and path stats of 0, after phase 9's state is freed
+    del spare
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"after phase 9: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated on the card")
+    families, fam_counts = {}, {}
+    for fam in FAMILY_SERVE:
+        families[fam], fam_counts[fam] = family_phase(fam, dev)
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
@@ -2111,7 +2462,9 @@ def main() -> int:
         by_path = {"feed": after[names[k["name"]]],
                    "read_path": rcounts[names[k["name"]]],
                    "serve": scounts[names[k["name"]]],
-                   "train": tcounts[names[k["name"]]]}
+                   "train": tcounts[names[k["name"]]],
+                   **{f"serve_{fam}": c[names[k["name"]]]
+                      for fam, c in fam_counts.items()}}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2123,7 +2476,7 @@ def main() -> int:
                    "feed": split, "layers": layers,
                    "cross_checked_rows": checked,
                    "query_s": q_s, "read_path": read, "serve": serve,
-                   "train": train},
+                   "train": train, "families": families},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

@@ -1,4 +1,5 @@
-"""The LM side of the port: parameter specs, the dense transformer and the
-unified model API (``api``).  Mirrors ``repro.models`` for the dense
-family; MoE, SSM, hybrid, encoder-decoder and VLM families are ROADMAP
-Queue 1 item 7."""
+"""The LM side of the port: parameter specs, the transformer (dense, moe
+and vlm families), the MoE FFN, the Mamba-2 SSD mixer and LM, the hybrid
+(Jamba) LM and the unified model API (``api``).  Mirrors
+``repro.models``; the encoder-decoder family and expert parallelism are
+ROADMAP Queue 1 item 7."""

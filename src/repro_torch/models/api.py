@@ -1,4 +1,4 @@
-"""Unified model API, mirroring ``repro.models.api`` for what the port has:
+"""Unified model API, mirroring ``repro.models.api``:
 
     param_specs / init_params / param_shapes / param_axes / param_count
     loss(cfg, params, batch)              -- training
@@ -8,9 +8,9 @@
     input_specs(cfg, shape)               -- per-(arch x shape) stand-ins
     pad_cache(cfg, cache, max_len)
 
-The dense family is ported.  The moe and vlm families of the transformer
-module and the ssm, hybrid and encdec modules raise ``NotImplementedError``
-(ROADMAP Queue 1 item 7).
+The dense, moe and vlm families (``transformer``), ssm (``mamba_lm``)
+and hybrid (``hybrid``) are ported.  The encdec family raises
+``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -21,13 +21,24 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import hybrid as H
+from repro_torch.models import mamba_lm as ML
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
+from repro_torch.models.params import TensorSpec
+
+_FAMILY_MODULE = {
+    "dense": T, "moe": T, "vlm": T,
+    "ssm": ML, "hybrid": H,
+}
 
 
 def module(cfg: ModelConfig):
-    T.require_dense(cfg)
-    return T
+    if cfg.family not in _FAMILY_MODULE:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+    return _FAMILY_MODULE[cfg.family]
 
 
 def param_specs(cfg: ModelConfig) -> Any:
@@ -73,13 +84,17 @@ def decode_step(cfg: ModelConfig, params: Any, cache: Dict,
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int
                 ) -> Tuple[Dict, Dict]:
-    return module(cfg).kv_cache_specs(cfg, batch, max_len)
+    mod = module(cfg)
+    if mod is T:
+        return T.kv_cache_specs(cfg, batch, max_len)
+    return mod.cache_specs(cfg, batch, max_len)
 
 
 def pad_cache(cfg: ModelConfig, cache: Dict, max_len: int) -> Dict:
     """Pad a fresh-from-prefill cache out to ``max_len`` KV slots so decode
-    steps can write past the prefill length."""
-    module(cfg)
+    steps can write past the prefill length (SSM caches are O(1): no-op)."""
+    if module(cfg) is ML:
+        return cache
     out = dict(cache)
     for key in ("k", "v"):
         arr = cache[key]
@@ -94,35 +109,44 @@ def pad_cache(cfg: ModelConfig, cache: Dict, max_len: int) -> Dict:
 # per-(arch x shape) input stand-ins
 # ---------------------------------------------------------------------------
 
+def _frontend_spec(cfg: ModelConfig, batch: int):
+    return (TensorSpec((batch, cfg.num_frontend_tokens, cfg.d_model),
+                       P.torch_dtype(cfg.dtype)),
+            ("batch", "frames", None))
+
+
 def token_len(cfg: ModelConfig, seq_len: int) -> int:
-    """The token run of a ``seq_len`` context: all of it in the dense
-    family (``repro``'s vlm prepends patch embeddings)."""
+    """The token run of a ``seq_len`` context: vlm prepends its patch
+    embeddings inside the context budget."""
     module(cfg)
+    if cfg.family == "vlm":
+        return seq_len - cfg.num_frontend_tokens
     return seq_len
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[Dict, Dict]:
     """(TensorSpec tree, logical-axes tree) for one sweep cell.
 
-    train   -> {tokens, targets}
-    prefill -> {tokens}
-    decode  -> {tokens (B,1), cache}  (one new token against a KV cache of
-               ``seq_len``)
+    train   -> {tokens, targets[, frontend]}
+    prefill -> {tokens[, frontend]}
+    decode  -> {tokens (B,1), cache}  (one new token against a KV/SSD
+               cache of ``seq_len``)
     """
     b, s = shape.global_batch, shape.seq_len
     i32 = torch.int32
-    if shape.kind == "train":
+    if shape.kind in ("train", "prefill"):
         t = token_len(cfg, s)
-        return ({"tokens": T.TensorSpec((b, t), i32),
-                 "targets": T.TensorSpec((b, t), i32)},
-                {"tokens": ("batch", "seq"), "targets": ("batch", "seq")})
-    if shape.kind == "prefill":
-        t = token_len(cfg, s)
-        return ({"tokens": T.TensorSpec((b, t), i32)},
-                {"tokens": ("batch", "seq")})
+        specs = {"tokens": TensorSpec((b, t), i32)}
+        axes = {"tokens": ("batch", "seq")}
+        if shape.kind == "train":
+            specs["targets"] = TensorSpec((b, t), i32)
+            axes["targets"] = ("batch", "seq")
+        if cfg.family == "vlm":
+            specs["frontend"], axes["frontend"] = _frontend_spec(cfg, b)
+        return specs, axes
     if shape.kind == "decode":
         cshapes, caxes = cache_specs(cfg, b, s)
-        return ({"tokens": T.TensorSpec((b, 1), i32), "cache": cshapes},
+        return ({"tokens": TensorSpec((b, 1), i32), "cache": cshapes},
                 {"tokens": ("batch", None), "cache": caxes})
     raise ValueError(shape.kind)
 

@@ -1,0 +1,169 @@
+"""Mixture-of-Experts FFN with sort-based routing.  Mirrors
+``repro.models.moe``.
+
+Routing is a sort: the (token, choice) pairs are sorted by expert so each
+expert's tokens are contiguous, bucketed into a dense (E, C, D) capacity
+buffer, run through batched matmuls and combined back per token.  Pairs
+beyond an expert's capacity are dropped (Switch/GShard semantics).
+
+Two layouts, chosen by token count as in ``repro``: one global group when
+B·S <= 4096 (decode, short prefill), else every sequence row routes on
+its own with capacity ``_capacity(cfg, S)``.  The two drop different
+pairs.  Padding tokens route and take capacity like any other token.
+
+What decides parity, and how the port keeps it on the card:
+  * the experts are chosen by a stable descending sort, so ties go to the
+    lower expert as in ``jax.lax.top_k`` (``torch.topk`` fixes no tie
+    order on CUDA);
+  * the pairs are grouped by a stable sort, so within an expert they keep
+    token order, and that order decides which overflow (the default sort
+    is not stable on CUDA);
+  * each token's kept outputs are summed in ascending expert order in the
+    activation dtype, rounding after each add: the order of ``repro``'s
+    scatter-add, whose updates run in sorted order.  The port does not
+    use ``index_add_``, which adds in no fixed order on the card.
+
+Expert parallelism over devices (``cfg.moe_ep``, ``repro.models.moe_ep``)
+waits for ``torch.distributed`` (ROADMAP Queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import PSpec
+from repro_torch.models.sharding import shard
+
+Array = torch.Tensor
+
+_GLOBAL_ROUTE_MAX_TOKENS = 4096  # decode-sized workloads use the global sort
+
+
+def require_local(cfg: ModelConfig) -> None:
+    if cfg.moe_ep:
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism (moe_ep) needs torch.distributed"
+            ", not ported yet (ROADMAP Queue 1 item 7)")
+
+
+def moe_specs(cfg: ModelConfig) -> Dict:
+    require_local(cfg)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": PSpec((d, e), ("embed", "experts"), dtype="float32"),
+        "w_gate": PSpec((e, d, f), ("experts", "embed", "ffn")),
+        "w_up": PSpec((e, d, f), ("experts", "embed", "ffn")),
+        "w_down": PSpec((e, f, d), ("experts", "ffn", "embed")),
+    }
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    c = int(cfg.capacity_factor * tokens_per_group *
+            cfg.experts_per_token / cfg.num_experts)
+    return max(8, _round_up(c, 8))
+
+
+def _route(logits: Array, k: int) -> Tuple[Array, Array]:
+    """Top-k routing probabilities. logits: (..., E) fp32.
+    Returns (weights (...,k), indices (...,k) int64); equal logits go to
+    the lower expert."""
+    gate, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(gate[..., :k], dim=-1), idx[..., :k]
+
+
+def expert_slots(idx: Array, num_experts: int, capacity: int
+                 ) -> Tuple[Array, Array, Array]:
+    """Where each routed pair of each group goes.  idx: (G, T, K) experts.
+    Returns, over the G groups' T·K pairs in token-major order: the
+    stable sort by expert ``order`` (G, TK), and in that sorted order
+    ``keep`` (the pair is within its expert's ``capacity``) and ``slot``
+    (its row of the (E·C + 1)-row buffer; dropped pairs go to the last)."""
+    g, t, k = idx.shape
+    tk = t * k
+    flat_e = idx.reshape(g, tk)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    experts = torch.arange(num_experts, device=idx.device)
+    group_start = torch.searchsorted(
+        se, experts.expand(g, num_experts).contiguous(), side="left")
+    pos = (torch.arange(tk, device=idx.device)
+           - torch.gather(group_start, 1, se))
+    keep = pos < capacity
+    slot = torch.where(keep, se * capacity + pos, num_experts * capacity)
+    return order, keep, slot
+
+
+def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
+                      idx: Array, capacity: int) -> Array:
+    """Sort-based dispatch for G token groups routed independently.
+    x: (G, T, D); weights/idx: (G, T, K).  Returns (G, T, D)."""
+    g, t, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tk = t * k
+    order, keep, slot = expert_slots(idx, e, capacity)
+    st = order // k                              # each sorted pair's token
+
+    buf = x.new_zeros((g, e * capacity + 1, d))
+    buf.scatter_(1, slot[..., None].expand(g, tk, d),
+                 torch.gather(x, 1, st[..., None].expand(g, tk, d)))
+    # (G, E, C, D) -> (E, G·C, D): one batched matmul per weight
+    xe = buf[:, :-1].reshape(g, e, capacity, d).transpose(0, 1).reshape(
+        e, g * capacity, d)
+    h = (F.silu(torch.bmm(xe, p["w_gate"].to(x.dtype)))
+         * torch.bmm(xe, p["w_up"].to(x.dtype)))
+    out = torch.bmm(h, p["w_down"].to(x.dtype))
+    out = out.reshape(e, g, capacity, d).transpose(0, 1).reshape(
+        g, e * capacity, d)
+    out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
+
+    # back to token-major pairs, each token's in ascending expert order
+    # (repro's scatter-add order; a token's k experts are distinct)
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(tk, device=x.device).expand(g, tk))
+    by_e = torch.argsort(idx, dim=-1)
+    slot_t, keep_t = (torch.gather(torch.gather(a, 1, inv).reshape(g, t, k),
+                                   2, by_e) for a in (slot, keep))
+    coef = (torch.gather(weights, 2, by_e) * keep_t).to(out.dtype)
+    gathered = torch.gather(
+        out, 1, slot_t.reshape(g, tk, 1).expand(g, tk, d)).reshape(
+            g, t, k, d) * coef[..., None]
+    y = torch.zeros((g, t, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + gathered[:, :, j]
+    return y
+
+
+def moe_ffn(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array]:
+    """x: (B, S, D) -> (out (B,S,D), aux_loss scalar)."""
+    require_local(cfg)
+    b, s, d = x.shape
+    logits = torch.matmul(x.float(), p["router"])
+    weights, idx = _route(logits, cfg.experts_per_token)
+
+    # load-balancing auxiliary loss (Switch-style), in float32; the one-hot
+    # by comparison (F.one_hot checks its input's range on the host)
+    probs = torch.softmax(logits, dim=-1)                   # (B,S,E)
+    experts = torch.arange(cfg.num_experts, device=x.device)
+    frac_tokens = torch.mean((idx[..., :1] == experts).float(), dim=(0, 1))
+    frac_probs = torch.mean(probs, dim=(0, 1))
+    aux = cfg.num_experts * torch.sum(frac_tokens * frac_probs)
+
+    if b * s <= _GLOBAL_ROUTE_MAX_TOKENS:
+        cap = _capacity(cfg, b * s)
+        y = _dispatch_combine(cfg, p, x.reshape(1, b * s, d),
+                              weights.reshape(1, b * s, -1),
+                              idx.reshape(1, b * s, -1), cap)
+        return y.reshape(b, s, d), aux
+
+    # per-row routing: every sequence row is its own group
+    y = _dispatch_combine(cfg, p, x, weights, idx, _capacity(cfg, s))
+    y = shard(y, "batch", "seq", None)
+    return y, aux

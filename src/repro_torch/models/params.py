@@ -18,7 +18,7 @@ both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,12 @@ class PSpec:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor to allocate (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

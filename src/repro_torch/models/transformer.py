@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.  Mirrors
+"""Decoder-only transformer LM (families: dense, moe, vlm).  Mirrors
 ``repro.models.transformer``.
 
 Layer parameters are stacked along a leading "layers" axis, as in
@@ -8,14 +8,20 @@ Under autograd each layer runs through ``remat_wrap``: ``"full"``
 checkpoints it (``repro``'s ``nothing_saveable``), ``"dots"`` saves the
 matmul outputs and recomputes the rest (``checkpoint_dots``).  The
 training loss never materialises (B, S, V) logits: ``chunked_xent``
-recomputes each chunk's in backward.  The moe and vlm families of
-``repro``'s module raise here: they are ROADMAP Queue 1 item 7.
+recomputes each chunk's in backward.
+
+The moe family puts ``moe.moe_ffn`` in place of the MLP when
+``moe_period`` is 1 (``repro``'s rule) and returns the layers' mean
+auxiliary loss.  The vlm family prepends ``num_frontend_tokens``
+precomputed patch embeddings (zeros when none are given, as in
+``repro``): they take the first positions, and their rows are trimmed
+after the final norm.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (checkpoint,
@@ -23,17 +29,21 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import PSpec, torch_dtype, tree_map
+from repro_torch.models import moe as M
+from repro_torch.models.params import (PSpec, TensorSpec, torch_dtype,
+                                       tree_map)
 from repro_torch.models.sharding import shard
 
 Array = torch.Tensor
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP Queue 1 item 7); the port runs dense models")
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def require_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not a "
+                         f"transformer family {FAMILIES}")
 
 
 def stack_specs(specs: Any, n: int, axis: str = "layers") -> Any:
@@ -79,13 +89,17 @@ def layer_params(params: Dict, i: int) -> Dict:
 # ---------------------------------------------------------------------------
 
 def layer_specs(cfg: ModelConfig) -> Dict:
-    require_dense(cfg)
-    return {
+    require_family(cfg)
+    specs = {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "attn": L.attention_specs(cfg),
         "ln2": L.rmsnorm_spec(cfg.d_model),
-        "mlp": L.mlp_specs(cfg),
     }
+    if cfg.num_experts and cfg.moe_period == 1:
+        specs["moe"] = M.moe_specs(cfg)
+    else:
+        specs["mlp"] = L.mlp_specs(cfg)
+    return specs
 
 
 def specs(cfg: ModelConfig) -> Dict:
@@ -99,6 +113,14 @@ def specs(cfg: ModelConfig) -> Dict:
 # blocks
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: ModelConfig, p: Dict, h: Array) -> Tuple[Array, Array]:
+    """The layer's MoE or MLP: (output, aux loss)."""
+    if "moe" in p:
+        return M.moe_ffn(cfg, p["moe"], h)
+    return (L.mlp(cfg, p["mlp"], h),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _block_train(cfg: ModelConfig, p: Dict, x: Array,
                  positions: Optional[Array],
                  segment_ids: Optional[Array]) -> Tuple[Array, Array]:
@@ -106,8 +128,7 @@ def _block_train(cfg: ModelConfig, p: Dict, x: Array,
     x = x + L.attention(cfg, p["attn"], h, positions, segment_ids)
     x = shard(x, "batch", "seq", None)
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    f = L.mlp(cfg, p["mlp"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    f, aux = _ffn(cfg, p, h)
     x = x + f
     return shard(x, "batch", "seq", None), aux
 
@@ -125,13 +146,25 @@ def _forward(cfg: ModelConfig, params: Dict, x: Array,
     return x, torch.stack(auxs).mean()
 
 
+def _default_frontend(cfg: ModelConfig, tokens: Array,
+                      frontend: Optional[Array]) -> Optional[Array]:
+    """The vlm family's zero patch embeddings when none are given."""
+    if frontend is None and cfg.num_frontend_tokens and cfg.family == "vlm":
+        frontend = torch.zeros(
+            (tokens.shape[0], cfg.num_frontend_tokens, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=tokens.device)
+    return frontend
+
+
 def _inputs_embed(cfg: ModelConfig, params: Dict, tokens: Array,
                   frontend: Optional[Array]) -> Array:
-    """Token embedding (the vlm family's frontend stub is not ported)."""
+    """Token embedding, after the frontend stub's rows if there is one.
+    The positions are arange over both (``None`` downstream)."""
+    dtype = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], tokens, dtype)
     if frontend is not None:
-        raise NotImplementedError("frontend embeddings belong to the vlm "
-                                  "family (ROADMAP Queue 1 item 7)")
-    return L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+        x = torch.cat([frontend.to(dtype), x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -146,13 +179,29 @@ def apply(cfg: ModelConfig, params: Dict, batch: Dict) -> Tuple[Array, Array]:
 
 def hidden_states(cfg: ModelConfig, params: Dict, batch: Dict
                   ) -> Tuple[Array, Array]:
-    """Final-norm hidden states. Returns (x (B,S,D), aux).  Without
-    ``positions`` in the batch the attention takes default positions (and
-    so, without ``segment_ids``, the flash kernel)."""
-    x = _inputs_embed(cfg, params, batch["tokens"], batch.get("frontend"))
-    x, aux = _forward(cfg, params, x, batch.get("positions"),
-                      batch.get("segment_ids"))
+    """Final-norm hidden states over the *token* positions (frontend stub
+    positions trimmed). Returns (x (B,S,D), aux).  Without ``positions``
+    in the batch the attention takes default positions (and so, without
+    ``segment_ids``, the flash kernel)."""
+    tokens = batch["tokens"]
+    frontend = _default_frontend(cfg, tokens, batch.get("frontend"))
+    x = _inputs_embed(cfg, params, tokens, frontend)
+    nf = 0 if frontend is None else frontend.shape[1]
+    positions = batch.get("positions")
+    segment_ids = batch.get("segment_ids")
+    if positions is not None and nf:
+        b = x.shape[0]
+        fpos = torch.arange(nf, dtype=positions.dtype,
+                            device=x.device).expand(b, nf)
+        positions = torch.cat([fpos, positions + nf], dim=1)
+        if segment_ids is not None:
+            fseg = torch.ones((b, nf), dtype=segment_ids.dtype,
+                              device=x.device)
+            segment_ids = torch.cat([fseg, segment_ids], dim=1)
+    x, aux = _forward(cfg, params, x, positions, segment_ids)
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
+    if nf:
+        x = x[:, nf:]
     return x, aux
 
 
@@ -216,12 +265,14 @@ def _block_prefill(cfg, p, x):
     a, kv = L.attention_prefill(cfg, p["attn"], h)
     x = x + a
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(cfg, p["mlp"], h), kv
+    return x + _ffn(cfg, p, h)[0], kv
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
             frontend: Optional[Array] = None) -> Tuple[Dict, Array]:
-    """Returns (cache {k,v:(L,B,S,Kv,hd), len:(B,)}, logits (B,V) at last)."""
+    """Returns (cache {k,v:(L,B,S,Kv,hd), len:(B,)}, logits (B,V) at last).
+    S and ``len`` count the frontend stub's rows too."""
+    frontend = _default_frontend(cfg, tokens, frontend)
     x = _inputs_embed(cfg, params, tokens, frontend)
     ks, vs = [], []
     for i in range(cfg.num_layers):
@@ -242,7 +293,7 @@ def _block_decode(cfg, p, x, pos, k_cache, v_cache):
         cfg, p["attn"], h, pos, k_cache, v_cache)
     x = x + a
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(cfg, p["mlp"], h), k_cache, v_cache
+    return x + _ffn(cfg, p, h)[0], k_cache, v_cache
 
 
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
@@ -259,12 +310,6 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
     logits = L.unembed(cfg, params["embed"], x)[:, 0]
     return logits, {"k": k, "v": v, "len": pos + 1}
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor to allocate (``jax.ShapeDtypeStruct``)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int

@@ -1,23 +1,27 @@
 """Slot-based continuous-batching serving engine (``repro.serve.engine``
 on PyTorch).
 
-A fixed pool of ``slots`` decode lanes shares one batched KV cache.
-Incoming requests are prefilled one at a time (prompt lengths bucketed,
-as in ``repro``, where the buckets bound the compiled prefill shapes) and
-spliced into a free slot; the decode step always runs the full batch, and
-finished slots are refilled between steps.
+A fixed pool of ``slots`` decode lanes shares one batched KV/SSD cache, a
+tree of tensors allocated from ``api.cache_specs``.  Incoming requests
+are prefilled one at a time (prompt lengths bucketed, as in ``repro``,
+where the buckets bound the compiled prefill shapes) and spliced into a
+free slot; the decode step always runs the full batch, and finished
+slots are refilled between steps.
 
 Bucketed prefill correctness: the prompt is right-padded to the bucket, the
 slot's ``len`` is reset to the true prompt length, and the first-token
 logits are taken at the true last position.  Junk cache rows beyond the
 true length are overwritten by the decode writes before the causal mask can
-ever expose them.
+ever expose them (attention families).  SSM and hybrid caches carry
+recurrent state, so those families prefill the exact prompt (bucket 1).
+The vlm family prefills and applies its prompt after a zero frontend of
+``num_frontend_tokens`` patch embeddings, which count in ``len``.
 
-On the card every admission runs the flash kernel in each layer twice:
-in ``prefill`` and in the first-token ``apply``.  The engine keeps the
-host-clock seconds of its admissions (``prefill_s``) and decode steps
-(``decode_s``); both end in a device-to-host read of the chosen tokens,
-so they include the device's work.
+On the card every admission runs the flash kernel twice in each
+attention layer: in ``prefill`` and in the first-token ``apply``.  The
+engine keeps the host-clock seconds of its admissions (``prefill_s``) and
+decode steps (``decode_s``); both end in a device-to-host read of the
+chosen tokens, so they include the device's work.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import EOS
 from repro_torch.models import api
+from repro_torch.models.params import torch_dtype, tree_map
 
 
 @dataclasses.dataclass
@@ -50,6 +55,17 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _splice(full, one, slot: int) -> None:
+    """Write a one-request cache tree into batch slot ``slot`` of ``full``
+    (every leaf has its batch on axis 1, after the layer or period
+    axis)."""
+    if isinstance(full, dict):
+        for key, sub in full.items():
+            _splice(sub, one[key], slot)
+    else:
+        full[:, slot] = one[:, 0].to(full.dtype)
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_len: int = 256, prompt_bucket: int = 16,
@@ -59,11 +75,11 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.device = resolve_device(device)
-        self.bucket = prompt_bucket
+        self.bucket = prompt_bucket if cfg.family not in ("ssm", "hybrid") \
+            else 1
         cshapes, _ = api.cache_specs(cfg, slots, max_len)
-        self.cache = {k: torch.zeros(s.shape, dtype=s.dtype,
-                                     device=self.device)
-                      for k, s in cshapes.items()}
+        self.cache = tree_map(lambda s: torch.zeros(
+            s.shape, dtype=s.dtype, device=self.device), cshapes)
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
         self.completed: List[Request] = []
@@ -84,18 +100,28 @@ class ServingEngine:
         prompt = np.zeros((1, blen), np.int32)
         prompt[0, :true_len] = req.prompt
         tokens = torch.from_numpy(prompt).to(self.device)
-        cache1, _ = api.prefill(self.cfg, self.params, tokens)
+        frontend = None
+        if self.cfg.family == "vlm":
+            frontend = torch.zeros(
+                (1, self.cfg.num_frontend_tokens, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        cache1, _ = api.prefill(self.cfg, self.params, tokens, frontend)
         cache1 = api.pad_cache(self.cfg, cache1, self.max_len)
         self.prefills += 1
         # first-token logits at the true last prompt position
-        logits, _ = api.apply(self.cfg, self.params, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        logits, _ = api.apply(self.cfg, self.params, batch)
+        nf = (self.cfg.num_frontend_tokens
+              if self.cfg.family == "vlm" else 0)
         first = int(torch.argmax(logits[0, true_len - 1]))
 
         for key, full in self.cache.items():
             if key == "len":
-                full[slot] = true_len
+                full[slot] = true_len + nf
             else:   # splice the single-request cache into batch slot
-                full[:, slot] = cache1[key][:, 0].to(full.dtype)
+                _splice(full, cache1[key], slot)
         req.tokens.append(first)
         self.active[slot] = req
         self.prefill_s += time.perf_counter() - t0

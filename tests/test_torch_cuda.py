@@ -1,9 +1,9 @@
 """The port on the card: each hand CUDA kernel against its plain PyTorch
 version, the device routing rules, a small feed on the card against the
-same feed on the CPU, a 2-layer serve and train steps on the card against the
-CPU.  Every test here is marked ``cuda`` and skips
-without a CUDA device; this file imports neither jax nor ``repro``, so it
-runs on a machine that has only PyTorch:
+same feed on the CPU, a 2-layer serve, each model family's serve and
+train steps on the card against the CPU.  Every test here is marked
+``cuda`` and skips without a CUDA device; this file imports neither jax
+nor ``repro``, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -386,7 +386,11 @@ FLASH_CASES = [(2, 300, 300, 8, 8, 64, True), (1, 333, 333, 16, 4, 112, True),
                (1, 100, 300, 14, 2, 128, True),
                (1, 200, 520, 8, 4, 64, False),
                (2, 333, 333, 56, 8, 128, True),
-               (2, 257, 129, 14, 2, 64, False)]
+               (2, 257, 129, 14, 2, 64, False),
+               # olmoe-1b-7b's prefill: group 1 at D = 128; internvl2-2b's:
+               # 256 frontend rows before a 16-token bucket
+               (1, 1552, 1552, 16, 16, 128, True),
+               (1, 272, 272, 16, 8, 128, True)]
 # the body each bf16 head dim of FLASH_CASES takes; float32 takes the
 # CUDA-core body at every D
 BF16_BODY = {64: "wgmma", 128: "wgmma", 16: "mma_sync", 32: "mma_sync",
@@ -518,6 +522,89 @@ def test_two_layer_serve_on_card_matches_cpu(card, dtype):
         want, _ = api.apply(cfg, cpu_params, {"tokens": tok})
         rms = (got.cpu() - want).pow(2).mean().sqrt() / want.std()
         assert float(rms) < 0.1
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
+                                  "internvl2-2b", "jamba-1.5-large-398b"])
+def test_family_serves_on_card_like_cpu(card, arch):
+    """Each ported family at smoke widths (float32) served on the card and
+    on the CPU from the same parameters: equal tokens, the first-token
+    logits within float32 rounding, and the flash kernel in every
+    attention layer of every prefill and first-token apply (none for the
+    ssm family), no attention on the plain version."""
+    from repro_torch import kernels
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import Request, ServingEngine
+    cfg = smoke_config(arch)
+    params = api.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    rng = np.random.default_rng(5)
+    # whole chunks of 8 for the SSD families
+    prompts = [rng.integers(16, cfg.vocab_size, n).tolist()
+               for n in (8, 16, 24)]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        reset_launch_counts()
+        kernels.reset_path_stats()
+        eng = ServingEngine(cfg, p, slots=2, max_len=64, device=dev)
+        reqs = [eng.submit(Request(list(x), max_new_tokens=6,
+                                   stop_at_eos=False)) for x in prompts]
+        eng.run()
+        out[dev] = [r.tokens for r in reqs]
+        if dev == "cuda":
+            attn = (0 if cfg.family == "ssm" else cfg.num_layers
+                    // cfg.attn_period if cfg.family == "hybrid"
+                    else cfg.num_layers)
+            assert launch_counts()["flash_attention"] == \
+                2 * attn * len(prompts)
+            assert ("flash_attention", "plain_on_card") not in \
+                kernels.path_stats()
+    assert out["cuda"] == out["cpu"]
+    tok = torch.tensor([prompts[1]], dtype=torch.int32)
+    got, _ = api.apply(cfg, params, {"tokens": tok.to(card)})
+    want, _ = api.apply(cfg, cpu_params, {"tokens": tok})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# (B, S, capacity_factor): the global layout (B*S <= 4096) and the
+# per-row one (B*S > 4096), each at a factor small enough that pairs drop
+@pytest.mark.parametrize("b,s,cf", [(2, 24, 0.3), (2, 2056, 0.4)])
+def test_moe_routing_on_card_equals_cpu(card, b, s, cf):
+    """The MoE routing on the card from the same router logits as the CPU,
+    a fifth of the rows zeroed so their logits tie exactly: the stable
+    sorts must give the CPU's experts, grouping order and kept masks bit
+    for bit; the FFN's output agrees within float32 rounding."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import api
+    from repro_torch.models import moe as M
+    cfg = smoke_config("olmoe-1b-7b").replace(capacity_factor=cf)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    g = torch.Generator().manual_seed(s)
+    x = torch.randn(b, s, cfg.d_model, generator=g)
+    x[:, ::5] = 0.0
+    logits = torch.matmul(x, p["router"])
+    cap = M._capacity(cfg, b * s if b * s <= 4096 else s)
+    got, want = {}, {}
+    for dev, out in (("cuda", got), ("cpu", want)):
+        w, idx = M._route(logits.to(dev), cfg.experts_per_token)
+        groups = idx.reshape(1, b * s, -1) if b * s <= 4096 else idx
+        out["idx"] = idx.cpu()
+        out["slots"] = [a.cpu() for a in M.expert_slots(
+            groups, cfg.num_experts, cap)]
+        pd = {k: v.to(dev) for k, v in p.items()}
+        out["y"], out["aux"] = (a.cpu() for a in M.moe_ffn(cfg, pd,
+                                                           x.to(dev)))
+    assert torch.equal(got["idx"], want["idx"])
+    for a, c in zip(got["slots"], want["slots"]):
+        assert torch.equal(a, c)
+    assert not bool(want["slots"][1].all())          # pairs were dropped
+    torch.testing.assert_close(got["y"], want["y"], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["aux"], want["aux"], rtol=1e-5,
+                               atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's serving engine on the CPU against ``repro``'s: the same
 parameters (carried across by ``params_from_numpy``) and the same requests
 give the same token lists, in test_serve.py's three scenarios for the
-dense arch (naive generation, continuous refill, bucketed prefill)."""
+dense arch (naive generation, continuous refill, bucketed prefill), and
+its first for the moe, ssm, vlm and hybrid families."""
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +24,16 @@ from repro_torch.serve import ServingEngine as TEngine
 ARCH = "deepseek-coder-33b"
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg, tcfg = j_smoke_config(ARCH), t_smoke_config(ARCH)
+def _models(arch):
+    jcfg, tcfg = j_smoke_config(arch), t_smoke_config(arch)
     jp = japi.init_params(jcfg, jax.random.key(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(ARCH)
 
 
 def _serve(models, prompts, max_new, **kw):
@@ -46,7 +51,8 @@ def _serve(models, prompts, max_new, **kw):
 
 
 def _greedy_reference(cfg, params, prompt, n):
-    """test_serve.py's naive single-request generation, on the port."""
+    """test_serve.py's naive single-request generation, on the port (the
+    vlm family's zero frontend is prefill's default)."""
     cache, logits = tapi.prefill(cfg, params,
                                  torch.tensor([prompt], dtype=torch.int32))
     cache = tapi.pad_cache(cfg, cache, 128)
@@ -66,6 +72,27 @@ def test_engine_matches_repro_and_naive_generation(models):
     assert got == want
     assert te.decode_steps == je.decode_steps
     assert te.prefills == je.prefills == 5
+    for toks, prompt in zip(got, prompts):
+        assert toks == _greedy_reference(models[1], models[3], prompt, 6)
+
+
+# test_serve.py:32's scenario for the other families: moe (bucketed
+# prefill whose padding takes expert capacity), ssm and hybrid (exact-length
+# prefill, recurrent caches, the hybrid's nested "ssm" cache spliced into
+# its slot), vlm (the zero frontend, counted in the cache's len)
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
+                                  "internvl2-2b", "jamba-1.5-large-398b"])
+def test_engine_matches_repro_for_each_family(arch):
+    models = _models(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(16, models[0].vocab_size, 8).tolist()
+               for _ in range(5)]
+    want, got, je, te = _serve(models, prompts, 6, slots=2, max_len=128)
+    assert got == want
+    assert te.bucket == je.bucket
+    assert te.decode_steps == je.decode_steps
+    np.testing.assert_array_equal(te.cache["len"].numpy(),
+                                  np.asarray(je.cache["len"]))
     for toks, prompt in zip(got, prompts):
         assert toks == _greedy_reference(models[1], models[3], prompt, 6)
 
@@ -102,3 +129,17 @@ def test_launcher_serves_on_the_cpu(capsys):
     with pytest.raises(SystemExit):
         t_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                        "--ckpt-dir", "/nonexistent"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
+                                  "internvl2-2b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
+def test_launcher_takes_every_ported_family(arch, capsys):
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+            "--max-new", "3"]
+    if arch == "whisper-medium":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_launch.main(argv)
+        return
+    assert t_launch.main(argv) == 0
+    assert capsys.readouterr().out.startswith("2 requests, 6 tokens")
