@@ -25,7 +25,10 @@ Phases, each fatal on failure:
      must issue at most 1 and 2 kernels and no memset or copy; flash
      attention logs the body (wgmma, mma_sync, cuda_core) of every case,
      and at the serving shape must take the wgmma body, held and timed
-     beside the mma_sync body it replaced;
+     beside the mma_sync body it replaced; whisper-medium's three
+     non-causal shapes (the encoder at S = T = 1,536, the cross-attention
+     of a 448-token prompt, a decode step's at S = 1 over 4 slots; G = 1
+     at D = 64) are held and timed too;
   4. the feed: a fused Q1 -> Q4 -> Q6 plan over 20 x 6,720 tweets at the
      paper's reference cardinalities (scale 1.0), through FeedManager;
      the launch counters of its three kernels must grow during this run,
@@ -74,11 +77,20 @@ Phases, each fatal on failure:
      (olmoe cut to 2 layers); olmoe the share of routed pairs dropped for
      capacity, its decode time against the expert casts' floor and the
      router's card-vs-CPU agreement; mamba2 that float32 recurrent decode
-     continues the chunked prefill at the chunk of 256.
-Each path (4-6, 7, 8, 9, 10, 11, 12) runs with the launch counts set to
-0 just before it and read just after; the kernels line gives each
+     continues the chunked prefill at the chunk of 256;
+ 13. serving whisper-medium (encdec) whole, after phase 12's state is
+     freed: 24 encoder and 24 decoder layers, seeded float32 parameters,
+     bf16 activations, 8 requests of 32-448 prompt tokens, 32 new, 4
+     slots, each after the engine's zero frontend of 1,536 frames.  Flash
+     launches must be 2 x (24 encoder + 24 self + 24 cross) per admission
+     plus 24 (cross) per decode step, no attention on the plain version;
+     tokens/s, prefill and decode ms, a profiled prefill, apply and decode
+     step, and a teacher-forced CPU cross-check (2 + 2 layers) over
+     seeded random frames.
+Each path (4-6, 7, 8, 9, 10, 11, 12, 13) runs with the launch counts set
+to 0 just before it and read just after; the kernels line gives each
 kernel's launches on the paths (feed, read_path, serve, train,
-serve_moe, serve_ssm, serve_vlm) and their sum.
+serve_moe, serve_ssm, serve_vlm, serve_encdec) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -784,6 +796,69 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # timed: the serving path's prefill, and a longer causal prompt
 FLASH_TIMED = [(1, 1536, 56, 8, 128), (1, 4096, 56, 8, 128)]
 PEAK_BF16_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+# whisper-medium's attentions (phase 13), all non-causal bf16 at G = 1,
+# D = 64: (name, B, S, T, H, Kv, D)
+FLASH_WHISPER = [("encoder", 1, 1536, 1536, 16, 16, 64),
+                 ("cross", 1, 448, 1536, 16, 16, 64),
+                 ("decode_cross", 4, 1, 1536, 16, 16, 64)]
+
+
+def check_flash_whisper(dev, rng):
+    """FLASH_WHISPER: the kernel against its plain version (FLASH_TOL),
+    then the kernel, the plain version and scaled_dot_product_attention
+    timed (call and device ms).  Non-causal, so the bound counts all 4 B
+    H S T D products at the bf16 peak, or q, k, v and o moved once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    rows = {}
+    for name, b, s, t_, h, kv, d in FLASH_WHISPER:
+        q = t(rng.normal(size=(b, s, h, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        k = t(rng.normal(size=(b, t_, kv, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        v = t(rng.normal(size=(b, t_, kv, d)).astype(np.float32), dev).to(
+            torch.bfloat16)
+        body = kernel.body(q.dtype, d)
+        got = kernel.flash_attention(q, k, v, False)
+        want = ref.flash_attention(q, k, v, False).float()
+        diff = (got.float() - want).abs()
+        e = float(diff.max())
+        if body != "wgmma" or not bool(torch.isfinite(got.float()).all()) \
+                or bool((diff > FLASH_TOL["bfloat16"]
+                         * (1 + want.abs())).any()):
+            raise AssertionError(
+                f"flash_attention whisper {name} (B={b} S={s} T={t_} H={h} "
+                f"Kv={kv} D={d} non-causal): body {body}, max |kernel - "
+                f"plain| {e} beyond {FLASH_TOL['bfloat16']} * (1 + |plain|)")
+        del want, diff
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def call():
+            kernel.flash_attention(q, k, v, False)
+
+        def library():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=False,
+                                           enable_gqa=True)
+        ms, lib = time_ms(call), time_ms(library)
+        dev_ms, lib_dev = device_ms(call), device_ms(library)
+        plain = time_ms(lambda: ref.flash_attention(q, k, v, False), reps=5)
+        flops = 4.0 * b * h * s * t_ * d
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * t_ * kv * d)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_S)
+        log(f"kernel flash_attention whisper {name}[B={b} S={s} T={t_} "
+            f"H={h} Kv={kv} D={d} non-causal bf16]: body={body} "
+            f"max_abs_err={e:.3g} (tol {FLASH_TOL['bfloat16']}) "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} "
+            f"(scaled_dot_product_attention) bound_ms={b_ms:.6f} ({b_by}) "
+            f"achieved={flops / dev_ms / 1e9:.1f} TFLOP/s on the device")
+        rows[f"whisper {name}"] = {
+            "shape": [b, s, t_, h, kv, d], "causal": False, "body": body,
+            "max_abs_err": e, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "bound_ms": b_ms,
+            "bound_by": b_by}
+    return rows
 
 
 def check_flash_attention(dev, rng):
@@ -881,6 +956,9 @@ def check_flash_attention(dev, rng):
                           "plain_ms": plain, "library_ms": lib,
                           "library_device_ms": lib_dev, "bound_ms": b_ms,
                           "bound_by": b_by}
+    whisper = check_flash_whisper(dev, rng)
+    err = max([err] + [r["max_abs_err"] for r in whisper.values()])
+    rows.update(whisper)
     return {"name": "flash_attention", "route": "cuda",
             "source": ("src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu"),
@@ -1358,12 +1436,13 @@ SERVE_TOL = 4.2              # max |d logit| / std, and the greedy gap
 SERVE_RMS_TOL = 1.0          # rms(d logit) / std
 
 
-def serve_requests(cfg, n=SERVE_REQUESTS, new=SERVE_NEW, multiple=1):
-    """``n`` prompts of 256-1,536 tokens (multiples of ``multiple``) from
-    a seeded numpy generator, ``new`` tokens each."""
+def serve_requests(cfg, n=SERVE_REQUESTS, new=SERVE_NEW, multiple=1,
+                   lens=SERVE_PROMPT_LEN):
+    """``n`` prompts of ``lens`` (default 256-1,536) tokens (multiples of
+    ``multiple``) from a seeded numpy generator, ``new`` tokens each."""
     from repro_torch.serve import Request
     rng = np.random.default_rng(SERVE_SEED + 1)
-    lo, hi = (x // multiple for x in SERVE_PROMPT_LEN)
+    lo, hi = (x // multiple for x in lens)
     return [Request(rng.integers(16, cfg.vocab_size,
                                  int(rng.integers(lo, hi + 1)) * multiple
                                  ).tolist(),
@@ -1383,12 +1462,13 @@ def serve_warmup(cfg, params, dev):
     torch.cuda.synchronize()
 
 
-def serve_path(cfg, params, dev, requests=None, tag="serve"):
+def serve_path(cfg, params, dev, requests=None, tag="serve",
+               max_len=SERVE_MAX_LEN):
     """The continuous-batching engine over ``requests`` (default:
     serve_requests(cfg))."""
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(cfg, params, slots=SERVE_SLOTS,
-                        max_len=SERVE_MAX_LEN, prompt_bucket=SERVE_BUCKET,
+                        max_len=max_len, prompt_bucket=SERVE_BUCKET,
                         device=dev)
     reqs = [eng.submit(r) for r in (requests or serve_requests(cfg))]
     t0 = time.perf_counter()
@@ -1420,7 +1500,7 @@ def serve_path(cfg, params, dev, requests=None, tag="serve"):
 
 
 def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1], flash=True,
-                    tag="serve"):
+                    tag="serve", max_len=SERVE_MAX_LEN):
     """Under torch.profiler: one prefill of the longest prompt and one
     first-token apply of it (the flash kernel's device time against all
     kernels' and the wall; with ``flash``, all of it must be the wgmma
@@ -1432,7 +1512,7 @@ def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1], flash=True,
                         device=dev)
     cache = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                            device=dev),
-                     api.cache_specs(cfg, SERVE_SLOTS, SERVE_MAX_LEN)[0])
+                     api.cache_specs(cfg, SERVE_SLOTS, max_len)[0])
     step = torch.full((SERVE_SLOTS, 1), 17, dtype=torch.int32, device=dev)
     runs = {"prefill": lambda: api.prefill(cfg, params, tok),
             "apply": lambda: api.apply(cfg, params, {"tokens": tok})}
@@ -1583,15 +1663,23 @@ def serve_attention_check(cfg, params, dev, n=SERVE_PROMPT_LEN[1]):
 def cross_check_readings(cfg, params, cpu_params, dev, prompts, seed):
     """Prompts of the given lengths (from ``seed``) on the card, greedy for
     CHECK_STEPS decode steps; the same prompts on the CPU, fed the card's
-    tokens.  Per prompt and step, in units of the CPU logits' std: max
-    and rms of card - CPU, and the CPU's best logit minus its logit at
-    the card's token (greedy gap)."""
+    tokens.  The encdec family's prefill gets seeded N(0, 1) frames (the
+    same on both devices), so that its cross-attention is not uniform.
+    Per prompt and step, in units of the CPU logits' std: max and rms of
+    card - CPU, and the CPU's best logit minus its logit at the card's
+    token (greedy gap)."""
     from repro_torch.models import api
     rng = np.random.default_rng(seed)
     out = []
     for plen in prompts:
         prompt = rng.integers(16, cfg.vocab_size, (1, plen)).astype(np.int32)
-        cache, logits = api.prefill(cfg, params, t(prompt, dev))
+        frames = None
+        if cfg.family == "encdec":
+            frames = rng.normal(size=(1, cfg.num_frontend_tokens,
+                                      cfg.d_model)).astype(np.float32)
+        cache, logits = api.prefill(
+            cfg, params, t(prompt, dev),
+            None if frames is None else t(frames, dev))
         cache = api.pad_cache(cfg, cache, plen + CHECK_STEPS + 1)
         card, toks = [], []
         for i in range(CHECK_STEPS + 1):
@@ -1601,7 +1689,9 @@ def cross_check_readings(cfg, params, cpu_params, dev, prompts, seed):
                 logits, cache = api.decode_step(
                     cfg, params, cache, torch.tensor(
                         [[toks[-1]]], dtype=torch.int32, device=dev))
-        ccache, clog = api.prefill(cfg, cpu_params, torch.from_numpy(prompt))
+        ccache, clog = api.prefill(
+            cfg, cpu_params, torch.from_numpy(prompt),
+            None if frames is None else torch.from_numpy(frames))
         ccache = api.pad_cache(cfg, ccache, plen + CHECK_STEPS + 1)
         for i in range(CHECK_STEPS + 1):
             want = clog[0].float()
@@ -1995,6 +2085,13 @@ FAMILY_SERVE = {
     "vlm": {"phase": 12, "arch": "internvl2-2b", "params": 1_699_598_336,
             "requests": 4, "new": 16, "multiple": 1, "check_layers": 2,
             "check_prompts": CHECK_PROMPTS},
+    # prompts up to whisper's published text context of 448 tokens; the
+    # check cuts the encoder and the decoder to 2 layers each (the CPU
+    # runs the encoder over 1,536 frames per prompt)
+    "encdec": {"phase": 13, "arch": "whisper-medium", "params": 758_344_704,
+               "requests": 8, "new": 32, "multiple": 1, "check_layers": 2,
+               "check_prompts": CHECK_PROMPTS, "prompt_len": (32, 448),
+               "max_len": 512},
 }
 # Card against CPU (cross_check_readings: max|d|/std, rms/std and greedy
 # gap/std per prompt and step).  scripts/family_serve_spread.py measured
@@ -2008,12 +2105,17 @@ FAMILY_SERVE = {
 #        check below catches it), convcache 6.2954;  rms 0.1017 | 0.0726,
 #        1.3613;  gap 0.3149 | 0.0000, 4.8451;
 #   vlm  max 0.2790 | heads 6.3092, len 6.9893;  rms 0.0624 | 1.3536,
-#        1.4223;  gap 0.1208 | 5.0751, 5.8409.
+#        1.4223;  gap 0.1208 | 5.0751, 5.8409;
+#   encdec (2 + 2 layers, random frames) max 3.7292 | enccausal 5.9348,
+#        xkv 5.9814;  rms 0.9116 | 1.2588, 1.2912;  gap 3.0415 | 4.5058,
+#        4.5919 (whisper's attention is near one-hot at this init, as
+#        deepseek's is, so the sound spread is wide).
 # Each limit lies between the sound and the faulty readings where they
 # separate; the moe gap limit only bounds a gross failure.
 FAMILY_TOL = {"moe": {"max": 0.33, "rms": 0.077, "greedy_gap": 1.0},
               "ssm": {"max": 3.0, "rms": 0.7, "greedy_gap": 2.5},
-              "vlm": {"max": 3.0, "rms": 0.7, "greedy_gap": 2.5}}
+              "vlm": {"max": 3.0, "rms": 0.7, "greedy_gap": 2.5},
+              "encdec": {"max": 4.8, "rms": 1.08, "greedy_gap": 3.8}}
 # recurrent decode against the chunked apply (float32, phase 11): the
 # largest max |d logit| / std over the decoded positions; the spread
 # script read 0.0002959 sound, 5.349 with the state not carried across
@@ -2057,13 +2159,18 @@ def family_model(fam, dev):
 
 
 def depth_cut(cfg, params, layers):
-    """The first ``layers`` layers (views) and the embedding."""
+    """The first ``layers`` layers (views) and the embedding; encdec's
+    encoder is cut to as many layers as its decoder."""
     from repro_torch.models.params import tree_map
     if layers == cfg.num_layers:
         return cfg, params
-    return (cfg.replace(num_layers=layers),
-            {"embed": params["embed"],
-             "layers": tree_map(lambda x: x[:layers], params["layers"])})
+    cut = dict(params, layers=tree_map(lambda x: x[:layers],
+                                       params["layers"]))
+    if cfg.family == "encdec":
+        cut["enc_layers"] = tree_map(lambda x: x[:layers],
+                                     params["enc_layers"])
+        return cfg.replace(num_layers=layers, encoder_layers=layers), cut
+    return cfg.replace(num_layers=layers), cut
 
 
 def cpu_copy(params, dtype):
@@ -2199,17 +2306,27 @@ def family_phase(fam, dev):
     threads = host_threads(tag)
     cfg, params, init_s = family_model(fam, dev)
     serve_warmup(cfg, params, dev)
+    lens = spec.get("prompt_len", SERVE_PROMPT_LEN)
+    max_len = spec.get("max_len", SERVE_MAX_LEN)
     reqs = serve_requests(cfg, spec["requests"], spec["new"],
-                          spec["multiple"])
+                          spec["multiple"], lens)
     reset_launch_counts()
     reset_path_stats()
     with (moe_drop_tally() if fam == "moe"
           else contextlib.nullcontext()) as tally:
-        res = serve_path(cfg, params, dev, reqs, tag=tag)
+        res = serve_path(cfg, params, dev, reqs, tag=tag, max_len=max_len)
     counts, paths = launch_counts(), path_stats()
-    attn = 0 if fam == "ssm" else cfg.num_layers
+    # per admission, prefill and the first-token apply each run every
+    # attention layer once (encdec: its encoder's, and each decoder
+    # layer's self- and cross-attention); an encdec decode step runs each
+    # decoder layer's cross-attention over the cached encoder rows
+    attn, per_step = (0 if fam == "ssm" else cfg.num_layers), 0
+    if fam == "encdec":
+        attn = cfg.encoder_layers + 2 * cfg.num_layers
+        per_step = cfg.num_layers
     want = {n: 0 for n in counts}
-    want["flash_attention"] = 2 * attn * res["prefills"]
+    want["flash_attention"] = (2 * attn * res["prefills"]
+                               + per_step * res["decode_steps"])
     log(f"{tag}: launches {counts} (expected {want}); attention paths "
         f"{paths}")
     if counts != want or paths.get(("flash_attention", "plain_on_card")) \
@@ -2227,8 +2344,9 @@ def family_phase(fam, dev):
             f"({d['prefill']['share']:.4f}), decode "
             f"{d['decode']['dropped']} of {d['decode']['pairs']}, all "
             f"{d['all']['share']:.4f}")
-    res["profile"] = profile_serving(cfg, params, dev, flash=attn > 0,
-                                     tag=tag)
+    res["profile"] = profile_serving(cfg, params, dev, n=lens[1],
+                                     flash=attn > 0, tag=tag,
+                                     max_len=max_len)
     if fam == "moe":
         # repro casts every expert leaf to bf16 at every call: per decode
         # step each layer reads 4 and writes 2 bytes of each expert weight

@@ -1,11 +1,13 @@
-"""chip_smoke.py's phases 10-12 alone (after phase 3's flash check):
-olmoe-1b-7b, mamba2-130m and internvl2-2b served whole on one card, every
-reading taken.  The cross-check limits are not applied here (chip_smoke
-applies them), so a run reports its readings whatever they are.
+"""chip_smoke.py's phases 10-13 alone (after phase 3's flash check):
+olmoe-1b-7b, mamba2-130m, internvl2-2b and whisper-medium served whole on
+one card, every reading taken.  The cross-check limits are not applied
+here (chip_smoke applies them), so a run reports its readings whatever
+they are.
 
-    python3 scripts/family_phases.py OUT_DIR
+    python3 scripts/family_phases.py OUT_DIR [FAMILIES]
 
-Needs a CUDA device.  Writes OUT_DIR/phases_10_12.json.
+FAMILIES is a comma-separated subset of moe,ssm,vlm,encdec (default: all
+four).  Needs a CUDA device.  Writes OUT_DIR/phases_10_13.json.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    if len(argv) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -47,7 +49,8 @@ def main(argv=None) -> int:
         cs.FAMILY_TOL[fam] = {k: float("inf") for k in cs.FAMILY_TOL[fam]}
     cs.SSM_CONTINUE_TOL = float("inf")
     rc = 0
-    for fam in cs.FAMILY_SERVE:
+    fams = argv[1].split(",") if len(argv) == 2 else list(cs.FAMILY_SERVE)
+    for fam in fams:
         t0 = time.perf_counter()
         try:
             res[fam], res[f"{fam}_launches"] = cs.family_phase(fam, dev)
@@ -55,7 +58,7 @@ def main(argv=None) -> int:
             traceback.print_exc()
             rc = 1
         print(f"{fam}: {time.perf_counter() - t0:.1f} s", flush=True)
-    with open(os.path.join(out, "phases_10_12.json"), "w") as fh:
+    with open(os.path.join(out, "phases_10_13.json"), "w") as fh:
         json.dump(res, fh, indent=1, default=str)
     return rc
 

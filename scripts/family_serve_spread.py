@@ -1,14 +1,15 @@
-"""How far the card's logits of chip_smoke.py's phases 10-12 lie from the
+"""How far the card's logits of chip_smoke.py's phases 10-13 lie from the
 CPU's, when the card is right and when it carries a planted fault: the
 basis of FAMILY_TOL and SSM_CONTINUE_TOL in chip_smoke.py.
 
     python3 scripts/family_serve_spread.py [--trials 3]
-        [--families moe,ssm,vlm] [--out DIR]
+        [--families moe,ssm,vlm,encdec] [--out DIR]
 
 Needs a CUDA device (and ~10 GB of host memory for the CPU's copies).
 Per family, the phase's model whole on the card (seeded as the phase
-seeds it) and its cross-check config (FAMILY_SERVE: olmoe-1b-7b cut to 2
-of 16 layers, mamba2-130m and internvl2-2b whole), read by
+seeds it) and its cross-check config (FAMILY_SERVE: olmoe-1b-7b and
+internvl2-2b cut to 2 layers, whisper-medium to 2 encoder and 2 decoder
+layers over seeded random frames, mamba2-130m whole), read by
 ``chip_smoke.cross_check_readings`` (max|d|/std, rms(d)/std and greedy
 gap/std per prompt and step, the CPU teacher-forced with the card's
 tokens).  Trial 0 draws the phase's own prompts, later trials other
@@ -23,7 +24,11 @@ card only (the CPU runs the plain port):
        convcache  prefill hands decode zero conv tails;
   vlm  heads      the query heads handed to the flash kernel in the wrong
                   GQA order (as scripts/serve_logit_spread.py);
-       len        the cache's len without the frontend's rows.
+       len        the cache's len without the frontend's rows;
+  encdec enccausal the encoder's self-attention causal (the ``causal=False``
+                  of repro's encoder lost);
+       xkv        a decode step's cross-attention reading the cached
+                  encoder keys as its values.
 
 For phase 11 it also reads the float32 continuation check
 (``chip_smoke.ssm_continuation``), sound and with each ssm fault.  A
@@ -50,13 +55,14 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 METRICS = ("max", "rms", "greedy_gap")
 FAULTS = {"moe": ("renorm", "overflow"), "ssm": ("chunkstate", "convcache"),
-          "vlm": ("heads", "len")}
+          "vlm": ("heads", "len"), "encdec": ("enccausal", "xkv")}
 
 
 def on_card(x) -> bool:
@@ -128,12 +134,32 @@ def _len(orig):
     return prefill
 
 
+def _enccausal(orig):
+    def attention(q, k, v, causal=True):
+        # the encoder's is the only non-causal attention with S = T (the
+        # cross-attention's S is a prompt of at most 448 rows, T 1,536)
+        if on_card(q) and not causal and q.shape[1] == k.shape[1]:
+            causal = True
+        return orig(q, k, v, causal)
+    return attention
+
+
+def _xkv(orig):
+    def apply(cfg, p, q, k, v):
+        if on_card(q) and q.shape[1] == 1:
+            v = k
+        return orig(cfg, p, q, k, v)
+    return apply
+
+
 PLANTS = {"renorm": (M, "_route", _renorm),
           "overflow": (M, "expert_slots", _overflow),
           "chunkstate": (S, "ssd_chunked", _chunkstate),
           "convcache": (S, "ssm_block", _convcache),
           "heads": (fa_ops, "flash_attention", _heads),
-          "len": (T, "prefill", _len)}
+          "len": (T, "prefill", _len),
+          "enccausal": (fa_ops, "flash_attention", _enccausal),
+          "xkv": (L, "cross_attention_apply", _xkv)}
 
 
 @contextlib.contextmanager
@@ -206,7 +232,7 @@ def family(fam, dev, trials):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trials", type=int, default=3)
-    ap.add_argument("--families", default="moe,ssm,vlm")
+    ap.add_argument("--families", default="moe,ssm,vlm,encdec")
     ap.add_argument("--out", default=None,
                     help="directory for family_serve_spread.json")
     args = ap.parse_args(argv)

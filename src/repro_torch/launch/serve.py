@@ -3,11 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-coder-33b --smoke --requests 12 [--slots 4]
 
-``--arch`` takes any registered model of the dense, moe, vlm, ssm and
-hybrid families; an encdec model (whisper-medium) raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7).  Runs on the CUDA
-device unless ``--device cpu`` is given.  Parameters are drawn from a
-seed (no weights are downloaded)."""
+``--arch`` takes any registered model (the dense, moe, vlm, ssm, hybrid
+and encdec families; encdec and vlm models get a zero frontend).  Runs
+on the CUDA device unless ``--device cpu`` is given.  Parameters are
+drawn from a seed (no weights are downloaded)."""
 
 from __future__ import annotations
 

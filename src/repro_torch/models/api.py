@@ -8,9 +8,8 @@
     input_specs(cfg, shape)               -- per-(arch x shape) stand-ins
     pad_cache(cfg, cache, max_len)
 
-The dense, moe and vlm families (``transformer``), ssm (``mamba_lm``)
-and hybrid (``hybrid``) are ported.  The encdec family raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7).
+Every family is ported: dense, moe and vlm (``transformer``), ssm
+(``mamba_lm``), hybrid (``hybrid``) and encdec (``encdec``).
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
 from repro_torch.models import mamba_lm as ML
 from repro_torch.models import params as P
@@ -29,15 +29,11 @@ from repro_torch.models.params import TensorSpec
 
 _FAMILY_MODULE = {
     "dense": T, "moe": T, "vlm": T,
-    "ssm": ML, "hybrid": H,
+    "ssm": ML, "hybrid": H, "encdec": E,
 }
 
 
 def module(cfg: ModelConfig):
-    if cfg.family not in _FAMILY_MODULE:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
     return _FAMILY_MODULE[cfg.family]
 
 
@@ -92,7 +88,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int
 
 def pad_cache(cfg: ModelConfig, cache: Dict, max_len: int) -> Dict:
     """Pad a fresh-from-prefill cache out to ``max_len`` KV slots so decode
-    steps can write past the prefill length (SSM caches are O(1): no-op)."""
+    steps can write past the prefill length (SSM caches are O(1): no-op).
+    Only the self-attention ``k``/``v`` grow: encdec's cross ``xk``/``xv``
+    keep their F encoder rows."""
     if module(cfg) is ML:
         return cache
     out = dict(cache)
@@ -117,8 +115,8 @@ def _frontend_spec(cfg: ModelConfig, batch: int):
 
 def token_len(cfg: ModelConfig, seq_len: int) -> int:
     """The token run of a ``seq_len`` context: vlm prepends its patch
-    embeddings inside the context budget."""
-    module(cfg)
+    embeddings inside the context budget; encdec frames live in a
+    separate encoder sequence."""
     if cfg.family == "vlm":
         return seq_len - cfg.num_frontend_tokens
     return seq_len
@@ -141,7 +139,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[Dict, Dict]:
         if shape.kind == "train":
             specs["targets"] = TensorSpec((b, t), i32)
             axes["targets"] = ("batch", "seq")
-        if cfg.family == "vlm":
+        if cfg.family in ("vlm", "encdec"):
             specs["frontend"], axes["frontend"] = _frontend_spec(cfg, b)
         return specs, axes
     if shape.kind == "decode":

@@ -1,5 +1,6 @@
-"""Common transformer layers, dense subset: RMSNorm, RoPE, GQA attention
-(full sequence / prefill / decode with per-example cache positions), MLP,
+"""Common transformer layers: RMSNorm, RoPE, GQA attention (full
+sequence, causal or not / prefill / decode with per-example cache
+positions), encoder-decoder cross attention, the SwiGLU and gelu MLPs,
 embedding.  Mirrors ``repro.models.layers``; tensors keep its layouts
 ((B, S, H, D) activations, (B, Smax, Kv, D) caches).
 
@@ -247,9 +248,10 @@ def _chunked_gqa(cfg: ModelConfig, q: Array, k: Array, v: Array,
 
 def attention(cfg: ModelConfig, p: Dict, x: Array,
               positions: Optional[Array],
-              segment_ids: Optional[Array] = None) -> Array:
-    """Full-sequence causal attention. x: (B,S,D); ``positions`` None
-    means arange from 0."""
+              segment_ids: Optional[Array] = None,
+              causal: bool = True) -> Array:
+    """Full-sequence attention (train / encoder). x: (B,S,D);
+    ``positions`` None means arange from 0."""
     q, k, v = _qkv(cfg, p, x)
     pos = positions if positions is not None else default_positions(
         x.shape[0], x.shape[1], x.device)
@@ -259,7 +261,7 @@ def attention(cfg: ModelConfig, p: Dict, x: Array,
     k = shard(k, "batch", "act_seq", "kv_heads", None)
     v = shard(v, "batch", "act_seq", "kv_heads", None)
     out = _sdpa(cfg, q, k, v, positions, positions,
-                segment_ids, segment_ids, True)
+                segment_ids, segment_ids, causal)
     out = shard(out, "batch", "act_seq", "heads", None)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
@@ -277,6 +279,35 @@ def attention_prefill(cfg: ModelConfig, p: Dict, x: Array
     out = _sdpa(cfg, q, k, v, None, None, None, None, True)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return y, (k, v)
+
+
+def cross_attention_specs(cfg: ModelConfig) -> Dict:
+    return attention_specs(cfg)
+
+
+def cross_attention(cfg: ModelConfig, p: Dict, x: Array, enc: Array
+                    ) -> Tuple[Array, Tuple[Array, Array]]:
+    """Encoder-decoder cross attention (no RoPE, no mask). x: (B,S,D),
+    enc: (B,F,D). Returns (out, (k,v)) so serving can cache encoder KV."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bfd,dhk->bfhk", enc, p["wk"].to(enc.dtype))
+    v = torch.einsum("bfd,dhk->bfhk", enc, p["wv"].to(enc.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    y = cross_attention_apply(cfg, p, q, k, v)
+    return y, (k, v)
+
+
+def cross_attention_apply(cfg: ModelConfig, p: Dict, q: Array,
+                          k: Array, v: Array) -> Array:
+    """Non-causal attention of q (B,S,H,D) over the encoder's k, v
+    (B,F,Kv,D).  ``repro`` passes arange positions on both sides, which
+    a non-causal, segment-free attention never reads; the port passes
+    ``None`` (the same thing) so that ``_sdpa`` takes the flash kernel."""
+    out = _sdpa(cfg, q, k, v, None, None, None, None, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(q.dtype))
 
 
 def cache_update(k_cache: Array, v_cache: Array, k_new: Array, v_new: Array,
@@ -320,26 +351,35 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Array, pos: Array,
 # ---------------------------------------------------------------------------
 
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
-    """SwiGLU, the dense family's MLP (the gelu variant is whisper's,
-    with encdec)."""
-    if cfg.mlp_variant != "swiglu":
-        raise NotImplementedError(
-            f"mlp_variant {cfg.mlp_variant!r} comes with the encdec family "
-            "(ROADMAP Queue 1 item 7)")
+    """SwiGLU (the dense family's), or whisper's biased gelu MLP."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_variant == "swiglu":
+        return {
+            "w_gate": PSpec((d, f), ("embed", "ffn")),
+            "w_up": PSpec((d, f), ("embed", "ffn")),
+            "w_down": PSpec((f, d), ("ffn", "embed")),
+        }
     return {
-        "w_gate": PSpec((d, f), ("embed", "ffn")),
-        "w_up": PSpec((d, f), ("embed", "ffn")),
-        "w_down": PSpec((f, d), ("ffn", "embed")),
+        "w_in": PSpec((d, f), ("embed", "ffn")),
+        "b_in": PSpec((f,), ("ffn",), init="zeros"),
+        "w_out": PSpec((f, d), ("ffn", "embed")),
+        "b_out": PSpec((d,), ("embed",), init="zeros"),
     }
 
 
 def mlp(cfg: ModelConfig, p: Dict, x: Array) -> Array:
-    g = torch.matmul(x, p["w_gate"].to(x.dtype))
-    u = torch.matmul(x, p["w_up"].to(x.dtype))
-    h = torch.nn.functional.silu(g) * u
+    if cfg.mlp_variant == "swiglu":
+        g = torch.matmul(x, p["w_gate"].to(x.dtype))
+        u = torch.matmul(x, p["w_up"].to(x.dtype))
+        h = torch.nn.functional.silu(g) * u
+        h = shard(h, "batch", "act_seq", "ffn")
+        return torch.matmul(h, p["w_down"].to(x.dtype))
+    # jax.nn.gelu's default is the tanh approximation
+    h = torch.matmul(x, p["w_in"].to(x.dtype))
+    h = torch.nn.functional.gelu(h + p["b_in"].to(x.dtype),
+                                 approximate="tanh")
     h = shard(h, "batch", "act_seq", "ffn")
-    return torch.matmul(h, p["w_down"].to(x.dtype))
+    return torch.matmul(h, p["w_out"].to(x.dtype)) + p["b_out"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,16 @@ true length are overwritten by the decode writes before the causal mask can
 ever expose them (attention families).  SSM and hybrid caches carry
 recurrent state, so those families prefill the exact prompt (bucket 1).
 The vlm family prefills and applies its prompt after a zero frontend of
-``num_frontend_tokens`` patch embeddings, which count in ``len``.
+``num_frontend_tokens`` patch embeddings, which count in ``len``.  The
+encdec family gets a zero frontend of ``num_frontend_tokens`` frames too,
+but as a separate encoder sequence: ``len`` counts the prompt only, and
+the first-token ``apply`` runs the encoder again, as in ``repro``.
 
 On the card every admission runs the flash kernel twice in each
-attention layer: in ``prefill`` and in the first-token ``apply``.  The
+attention layer: in ``prefill`` and in the first-token ``apply`` (for
+encdec, in each encoder layer and in each decoder layer's self- and
+cross-attention); an encdec decode step runs it once in each decoder
+layer, for the cross-attention.  The
 engine keeps the host-clock seconds of its admissions (``prefill_s``) and
 decode steps (``decode_s``); both end in a device-to-host read of the
 chosen tokens, so they include the device's work.
@@ -101,7 +107,7 @@ class ServingEngine:
         prompt[0, :true_len] = req.prompt
         tokens = torch.from_numpy(prompt).to(self.device)
         frontend = None
-        if self.cfg.family == "vlm":
+        if self.cfg.family in ("vlm", "encdec"):
             frontend = torch.zeros(
                 (1, self.cfg.num_frontend_tokens, self.cfg.d_model),
                 dtype=torch_dtype(self.cfg.dtype), device=self.device)

@@ -390,7 +390,13 @@ FLASH_CASES = [(2, 300, 300, 8, 8, 64, True), (1, 333, 333, 16, 4, 112, True),
                # olmoe-1b-7b's prefill: group 1 at D = 128; internvl2-2b's:
                # 256 frontend rows before a 16-token bucket
                (1, 1552, 1552, 16, 16, 128, True),
-               (1, 272, 272, 16, 8, 128, True)]
+               (1, 272, 272, 16, 8, 128, True),
+               # whisper-medium's: the encoder (S = T = 1,536 frames,
+               # non-causal, G = 1 at D = 64), the cross-attention of its
+               # longest prompt, and a decode step's over 4 slots (S = 1)
+               (1, 1536, 1536, 16, 16, 64, False),
+               (1, 448, 1536, 16, 16, 64, False),
+               (4, 1, 1536, 16, 16, 64, False)]
 # the body each bf16 head dim of FLASH_CASES takes; float32 takes the
 # CUDA-core body at every D
 BF16_BODY = {64: "wgmma", 128: "wgmma", 16: "mma_sync", 32: "mma_sync",
@@ -525,13 +531,16 @@ def test_two_layer_serve_on_card_matches_cpu(card, dtype):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
-                                  "internvl2-2b", "jamba-1.5-large-398b"])
+                                  "internvl2-2b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
 def test_family_serves_on_card_like_cpu(card, arch):
     """Each ported family at smoke widths (float32) served on the card and
     on the CPU from the same parameters: equal tokens, the first-token
-    logits within float32 rounding, and the flash kernel in every
-    attention layer of every prefill and first-token apply (none for the
-    ssm family), no attention on the plain version."""
+    logits within float32 rounding (whisper's over seeded random frames),
+    and the flash kernel in every attention layer of every prefill and
+    first-token apply (none for the ssm family; whisper's encoder, self-
+    and cross-attention layers, and its cross-attention in every decode
+    step), no attention on the plain version."""
     from repro_torch import kernels
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -557,15 +566,21 @@ def test_family_serves_on_card_like_cpu(card, arch):
         if dev == "cuda":
             attn = (0 if cfg.family == "ssm" else cfg.num_layers
                     // cfg.attn_period if cfg.family == "hybrid"
-                    else cfg.num_layers)
+                    else cfg.encoder_layers + 2 * cfg.num_layers
+                    if cfg.family == "encdec" else cfg.num_layers)
+            per_step = cfg.num_layers if cfg.family == "encdec" else 0
             assert launch_counts()["flash_attention"] == \
-                2 * attn * len(prompts)
+                2 * attn * len(prompts) + per_step * eng.decode_steps
             assert ("flash_attention", "plain_on_card") not in \
                 kernels.path_stats()
     assert out["cuda"] == out["cpu"]
-    tok = torch.tensor([prompts[1]], dtype=torch.int32)
-    got, _ = api.apply(cfg, params, {"tokens": tok.to(card)})
-    want, _ = api.apply(cfg, cpu_params, {"tokens": tok})
+    batch = {"tokens": torch.tensor([prompts[1]], dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.from_numpy(rng.normal(size=(
+            1, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32))
+    got, _ = api.apply(cfg, params, {k: v.to(card) for k, v in
+                                     batch.items()})
+    want, _ = api.apply(cfg, cpu_params, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 

@@ -212,13 +212,56 @@ def test_cache_specs_match():
         assert str(ts[key].dtype) == f"torch.{js[key].dtype}"
 
 
-# the encdec family, and expert parallelism (moe_ep) in the moe and hybrid
-# families, wait for ROADMAP Queue 1 item 7; the moe, vlm, ssm and hybrid
-# families themselves are held to repro in test_torch_families.py
-@pytest.mark.parametrize("arch,moe_ep", [("whisper-medium", False),
-                                         ("olmoe-1b-7b", True),
+# expert parallelism (moe_ep) in the moe and hybrid families waits for
+# ROADMAP Queue 1 item 7; the moe, vlm, ssm, hybrid and encdec families
+# themselves are held to repro in test_torch_families.py
+@pytest.mark.parametrize("arch,moe_ep", [("olmoe-1b-7b", True),
                                          ("jamba-1.5-large-398b", True)])
 def test_other_families_are_not_ported_yet(arch, moe_ep):
     cfg = t_smoke_config(arch).replace(moe_ep=moe_ep)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.param_specs(cfg)
+
+
+def test_gelu_mlp_and_cross_attention_match():
+    """whisper's layers on their own: the biased gelu MLP (jax.nn.gelu's
+    tanh form) and cross-attention over seeded random encoder rows, its
+    (k, v) for the cache, and the decode form that reuses them; the
+    cross-attention takes the flash path (no plain-path dispatch)."""
+    jcfg = j_smoke_config("whisper-medium")
+    tcfg = t_smoke_config("whisper-medium")
+    jp = japi.init_params(jcfg, jax.random.key(1))
+    jl = jax.tree.map(lambda a: np.asarray(a)[0], jp["layers"])
+    tl = params_from_numpy(jl, device="cpu")
+    rng = np.random.default_rng(6)
+    # non-zero biases, so that each is read where repro reads it
+    for name in ("b_in", "b_out"):
+        jl["mlp"][name] = rng.normal(size=jl["mlp"][name].shape).astype(
+            np.float32)
+        tl["mlp"][name] = torch.from_numpy(jl["mlp"][name])
+    for name in ("bq", "bk", "bv"):
+        jl["cross_attn"][name] = rng.normal(
+            size=jl["cross_attn"][name].shape).astype(np.float32)
+        tl["cross_attn"][name] = torch.from_numpy(jl["cross_attn"][name])
+    x = rng.normal(size=(2, 7, jcfg.d_model)).astype(np.float32)
+    enc = rng.normal(size=(2, 11, jcfg.d_model)).astype(np.float32)
+    _close(TL.mlp(tcfg, tl["mlp"], torch.from_numpy(x)),
+           JL.mlp(jcfg, jax.tree.map(jnp.asarray, jl["mlp"]),
+                  jnp.asarray(x)))
+    jxp = jax.tree.map(jnp.asarray, jl["cross_attn"])
+    jy, (jk, jv) = JL.cross_attention(jcfg, jxp, jnp.asarray(x),
+                                      jnp.asarray(enc))
+    kernels.reset_path_stats()
+    ty, (tk, tv) = TL.cross_attention(tcfg, tl["cross_attn"],
+                                      torch.from_numpy(x),
+                                      torch.from_numpy(enc))
+    assert kernels.path_stats() == {}
+    _close_to_scale(ty, jy)
+    _close_to_scale(tk, jk)
+    _close_to_scale(tv, jv)
+    q = rng.normal(size=(2, 1, jcfg.num_heads, jcfg.head_dim)).astype(
+        np.float32)
+    _close_to_scale(
+        TL.cross_attention_apply(tcfg, tl["cross_attn"], torch.from_numpy(q),
+                                 tk, tv),
+        JL.cross_attention_apply(jcfg, jxp, jnp.asarray(q), jk, jv))

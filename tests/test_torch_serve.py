@@ -2,7 +2,7 @@
 parameters (carried across by ``params_from_numpy``) and the same requests
 give the same token lists, in test_serve.py's three scenarios for the
 dense arch (naive generation, continuous refill, bucketed prefill), and
-its first for the moe, ssm, vlm and hybrid families."""
+its first for the moe, ssm, vlm, hybrid and encdec families."""
 
 import jax
 import jax.numpy as jnp
@@ -79,9 +79,11 @@ def test_engine_matches_repro_and_naive_generation(models):
 # test_serve.py:32's scenario for the other families: moe (bucketed
 # prefill whose padding takes expert capacity), ssm and hybrid (exact-length
 # prefill, recurrent caches, the hybrid's nested "ssm" cache spliced into
-# its slot), vlm (the zero frontend, counted in the cache's len)
+# its slot), vlm (the zero frontend, counted in the cache's len), encdec
+# (the zero frames, not counted in len; cross keys and values spliced)
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
-                                  "internvl2-2b", "jamba-1.5-large-398b"])
+                                  "internvl2-2b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
 def test_engine_matches_repro_for_each_family(arch):
     models = _models(arch)
     rng = np.random.default_rng(5)
@@ -137,9 +139,5 @@ def test_launcher_serves_on_the_cpu(capsys):
 def test_launcher_takes_every_ported_family(arch, capsys):
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
             "--max-new", "3"]
-    if arch == "whisper-medium":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_launch.main(argv)
-        return
     assert t_launch.main(argv) == 0
     assert capsys.readouterr().out.startswith("2 requests, 6 tokens")
