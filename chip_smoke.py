@@ -87,10 +87,34 @@ Phases, each fatal on failure:
      tokens/s, prefill and decode ms, a profiled prefill, apply and decode
      step, and a teacher-forced CPU cross-check (2 + 2 layers) over
      seeded random frames.
-Each path (4-6, 7, 8, 9, 10, 11, 12, 13) runs with the launch counts set
-to 0 just before it and read just after; the kernels line gives each
+ 14. (run right after phase 7, before serving) the durable, elastic feed
+     of the whole workload over phase 4's tables: (a) three plans of 20
+     x 6,720 tweets, 2 partitions each: A = Q1 > Q2 > ... > Q7 fused, B =
+     UDF1, C = UDF2 (both write safety_check_flag, so each is a plan of
+     its own); launches must be exactly the path's (A: 2 probes and 3
+     joins an invocation, one int64 sum per Q2 build, two counts per Q6
+     build; Q3's top-3 over 50,000 countries is outside segment_topk's
+     envelope and must run plain on the card, once per build; B and C
+     launch nothing), the first 2 frames of each held to a CPU
+     ComputingRunner in every column; records/s, per-stage seconds and a
+     profiled batch's device busy share; (c) plan A scaled up by 2
+     partitions mid-stream over (a)'s first 8 frames, bitwise equal by id
+     to (a)'s rows, and a 3-partition feed scaled down by one under a
+     backlog, each tweet stored exactly once; (b) 2 crash rounds: a child
+     interpreter (this script, --durable-child) runs plan A durable (WAL,
+     checkpoints, repair) on the card over 12 frames (cut from 20 for
+     time) under rolling upserts to safety_levels and suspicious_names,
+     is SIGKILLed at a seeded random point of its ingest window, and the
+     feed is resumed on the card (FeedManager.resume) under more upserts,
+     which then stop while repair converges: no row lost or doubled,
+     every row's Q1 and Q5 columns current under the final tables (by
+     numpy lookup for every row, and against a CPU Q1 > Q5 on the first
+     2 frames); the replay backlog and the recovery seconds of each round.
+Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13) runs with the launch counts
+set to 0 just before it and read just after; the kernels line gives each
 kernel's launches on the paths (feed, read_path, serve, train,
-serve_moe, serve_ssm, serve_vlm, serve_encdec) and their sum.
+feed_durable, serve_moe, serve_ssm, serve_vlm, serve_encdec) and their
+sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -1138,24 +1162,30 @@ def q1_store_plan(adapter, name, spill_dir, batch=BATCH,
                    refresh=refresh, compact=compact, upsert=True))
 
 
-class RollingUpdater(threading.Thread):
-    """Upserts ``nkeys`` random existing safety_levels keys every
-    ``every_s`` until stopped (benchmarks/fig_repair.py's workload)."""
+def safety_values(rng, n):
+    return {"safety_level": rng.integers(0, 5, n).astype(np.int32)}
 
-    def __init__(self, table, nbase, every_s, nkeys, seed=5):
+
+class RollingUpdater(threading.Thread):
+    """Upserts ``nkeys`` random keys of ``keys`` (existing keys of
+    ``table``) every ``every_s`` until stopped (benchmarks/fig_repair.py's
+    workload), the columns drawn by ``values(rng, n)`` (default a safety
+    level in [0, 5))."""
+
+    def __init__(self, table, keys, every_s, nkeys, seed=5,
+                 values=safety_values):
         super().__init__(name="rolling-updater", daemon=True)
-        self.table, self.nbase = table, nbase
-        self.every_s, self.nkeys = every_s, nkeys
+        self.table = table
+        self.keys = np.asarray(keys, np.int64)
+        self.every_s, self.nkeys, self.values = every_s, nkeys, values
         self.rng = np.random.default_rng(seed)
         self.updates = 0
         self._stop_evt = threading.Event()
 
     def run(self):
         while not self._stop_evt.wait(self.every_s):
-            keys = self.rng.choice(self.nbase, self.nkeys, replace=False)
-            self.table.upsert(keys.astype(np.int64),
-                              safety_level=self.rng.integers(
-                                  0, 5, self.nkeys).astype(np.int32))
+            keys = self.rng.choice(self.keys, self.nkeys, replace=False)
+            self.table.upsert(keys, **self.values(self.rng, self.nkeys))
             self.updates += 1
 
     def stop(self):
@@ -1337,7 +1367,7 @@ def read_path(dev, store, out_dir, frames=READ_FRAMES,
     # repair re-enriches under rolling updates and compaction reclaims
     table = store["safety_levels"]
     nbase = len(table)
-    upd = RollingUpdater(table, nbase, 0.1, min(25, nbase))
+    upd = RollingUpdater(table, np.arange(nbase), 0.1, min(25, nbase))
     live_total = live_frames * batch
     h2 = mgr.submit(q1_store_plan(
         SyntheticAdapter(total=live_total, frame_size=batch, seed=13,
@@ -1407,6 +1437,486 @@ def read_path(dev, store, out_dir, frames=READ_FRAMES,
             "segments_merged": merged_segs, "merge_s": merge_s,
             "queries": rp.walls, "live": live_res,
             "groups_c": int(keys.shape[0])}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the durable, elastic feed of the whole workload
+# ---------------------------------------------------------------------------
+
+# the paper's workload as three plans: Q1..Q7 fused, and the two safety
+# checks apart (both write safety_check_flag, so they cannot share a plan)
+WORKLOAD = {"A": ("q1", "q2", "q3", "q4", "q5", "q6", "q7"),
+            "B": ("udf1",), "C": ("udf2",)}
+# (b)'s stream is cut to 12 of (a)'s 20 frames (80,640 tweets) for time:
+# each round pays a child interpreter and a full re-enrichment by repair.
+# Its intake is throttled to a 10 s window: a checkpoint of plan A under
+# load takes ~2 s on an H100, so most kill points follow one
+CRASH_FRAMES, CRASH_RATE, CRASH_ROUNDS = 12, 8_064.0, 2
+SEED_CRASH = 100
+# (c): a scaled feed over the first 8 of (a)'s frames (intake throttled
+# so the scale-up lands mid-stream), a drain over 6
+SCALE_FRAMES, SCALE_RATE, DRAIN_FRAMES = 8, 20_000.0, 6
+UPDATE_EVERY, UPDATE_KEYS = 0.1, 25
+Q1_Q5_COLUMNS = ("safety_level", "nearby_facility_counts",
+                 "nearby_religious_buildings", "nearby_building_religions",
+                 "suspect_threat_level", "suspect_religion")
+
+
+def workload_udf(key):
+    from repro_torch.core.enrich import queries as Q
+    udfs = [Q.get_udf(n) for n in WORKLOAD[key]]
+    return udfs[0] if len(udfs) == 1 else Q.chain(f"plan_{key}", *udfs)
+
+
+def workload_plan(key, adapter, name, partitions=2, **store_kw):
+    from repro_torch.core import pipeline
+    return (pipeline(adapter, name).parse(batch_size=BATCH)
+            .options(num_partitions=partitions)
+            .enrich(workload_udf(key)).store(**store_kw))
+
+
+def durable_plan(durable_dir, seed, rate=None):
+    """Plan A, durable (WAL + checkpoints) with repair: the child runs it,
+    the parent resumes it (same seed and frame size; replay is
+    unthrottled)."""
+    from repro_torch.core import DurableSpec, RepairSpec, SyntheticAdapter
+    return workload_plan(
+        "A", SyntheticAdapter(total=CRASH_FRAMES * BATCH, frame_size=BATCH,
+                              seed=seed, rate=rate), "durable",
+        durable=DurableSpec(dir=durable_dir, checkpoint_interval_s=0.5),
+        refresh=RepairSpec(budget_rows_s=100_000.0))
+
+
+def name_values(rng, n):
+    return {"religion": rng.integers(0, 64, n).astype(np.int32),
+            "threat_level": rng.integers(1, 11, n).astype(np.int32)}
+
+
+def start_updaters(store, seed):
+    """Rolling upserts to the two tables repair re-enriches from (Q1's
+    safety_levels, Q5's suspicious_names), every UPDATE_EVERY s."""
+    sn = store["suspicious_names"].snapshot()
+    ups = [RollingUpdater(store["safety_levels"],
+                          np.arange(len(store["safety_levels"])),
+                          UPDATE_EVERY, UPDATE_KEYS, seed=seed),
+           RollingUpdater(store["suspicious_names"],
+                          sn.arrays["key"][:sn.size], UPDATE_EVERY,
+                          UPDATE_KEYS, seed=seed + 1, values=name_values)]
+    for u in ups:
+        u.start()
+    return ups
+
+
+def stop_updaters(ups):
+    for u in ups:
+        u.stop()
+    for u in ups:
+        u.join(timeout=10)
+    return sum(u.updates for u in ups)
+
+
+def plan_rows(feed):
+    cols = [c for c in feed.plan.output_columns if c != "valid"]
+    res = feed.query().select(*cols).execute()
+    order = np.argsort(res["id"], kind="stable")
+    return {k: np.asarray(v)[order] for k, v in res.items()}
+
+
+def diff_columns(rows, want, at):
+    """{column: rows that differ} between ``rows`` at ``at`` and ``want``."""
+    bad = {}
+    for k in want:
+        a, b = rows[k][at], want[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad[k] = f"{a.dtype}{a.shape} vs {b.dtype}{b.shape}"
+        elif not np.array_equal(a, b):
+            bad[k] = int((a != b).reshape(len(a), -1).any(1).sum())
+    return bad
+
+
+def cpu_enrichment(store, udf, seed, frames, cols):
+    """A CPU ComputingRunner over the first ``frames`` frames of the
+    stream, valid rows sorted by id, restricted to ``cols``."""
+    from repro_torch.core import (ComputingRunner, ComputingSpec,
+                                  SyntheticAdapter)
+    runner = ComputingRunner(ComputingSpec(udf, BATCH, refresh="version"),
+                             store, device="cpu")
+    ad = SyntheticAdapter(total=frames * BATCH, frame_size=BATCH, seed=seed)
+    outs = [runner.run(frame) for frame in ad.frames()]
+    cpu = {k: np.concatenate([o[k][o["valid"]] for o in outs])
+           for k in cols}
+    order = np.argsort(cpu["id"], kind="stable")
+    return {k: v[order] for k, v in cpu.items()}
+
+
+def held_to_cpu(store, udf, rows, seed, what, smi, frames=CHECK_FRAMES,
+                cols=None):
+    """The stored ``rows`` of the first ``frames`` frames against a CPU
+    enrichment: every column in ``cols`` (default all) equal."""
+    t0 = time.perf_counter()
+    cpu = cpu_enrichment(store, udf, seed, frames, cols or list(rows))
+    cpu_s = time.perf_counter() - t0
+    at = np.searchsorted(rows["id"], cpu["id"])
+    if not np.array_equal(rows["id"][np.minimum(at, len(rows["id"]) - 1)],
+                          cpu["id"]):
+        raise AssertionError(f"{what}: CPU ids missing from the store")
+    bad = diff_columns(rows, cpu, at)
+    if bad:
+        raise AssertionError(f"{what}: columns differ from the CPU: {bad}")
+    log(f"{what}: {len(cpu['id'])} rows of {frames} frames equal the CPU "
+        f"in {len(cpu)} columns (CPU run {cpu_s:.1f} s) [{smi}]")
+    return len(cpu["id"])
+
+
+def batch_layers(dev, store, udf, nbatch=2):
+    """One thread's ComputingRunner on the card over ``nbatch`` frames,
+    first use excluded: once under torch.profiler (the device's busy
+    share of a batch), once with every batch calibrated (each fused stage
+    replayed alone and timed, ``ComputingRunner._calibrate_stages``): ms
+    per batch of each stage's state build and apply."""
+    from repro_torch.core import (ComputingRunner, ComputingSpec,
+                                  SyntheticAdapter)
+    from repro_torch.core.computing import ComputingStats
+    frames = list(SyntheticAdapter(total=(nbatch + 1) * BATCH,
+                                   frame_size=BATCH,
+                                   seed=SEED_STREAM).frames())
+    runner = ComputingRunner(ComputingSpec(udf, BATCH), store, device=dev)
+    runner.run(frames[0])
+    prof, wall_ms = profiled_seen(lambda: [runner.run(f)
+                                           for f in frames[1:]])
+    dev_ms = kernel_device_ms(prof)
+    runner.CALIBRATE_EVERY = 1
+    runner.stats = ComputingStats()
+    for f in frames[1:]:
+        runner.run(f)
+    stage_ms = {n: {"state_ms": st.state_s / nbatch * 1e3,
+                    "apply_ms": st.apply_s / nbatch * 1e3}
+                for n, st in runner.stats.per_stage.items()}
+    return {"batches": nbatch, "profiled_wall_ms": wall_ms,
+            "device_busy_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
+            "stage_ms_per_batch": stage_ms}
+
+
+def expected_workload_launches(key, c):
+    """Plan A per invocation: Q1's and Q5's probes, Q4's, Q5's and Q7's
+    joins (calibration replays each stage once more); per Q6 state build
+    the income probe and two counts, per Q2 build one int64 sum.  Q3's
+    top-3 over 50,000 countries runs plain on the card.  B and C (the
+    safety checks) launch nothing."""
+    want = dict.fromkeys(("hash_probe", "spatial_join", "segment_reduce",
+                          "segment_topk", "flash_attention"), 0)
+    if key != "A":
+        return want, {}
+    inv = c.invocations + c.calibrations
+    b2, b3, b6 = (c.per_stage[n].state_builds for n in (
+        "q2_religious_population", "q3_largest_religions",
+        "q6_tweet_context"))
+    want.update(hash_probe=2 * inv + b6, spatial_join=3 * inv,
+                segment_reduce=b2 + 2 * b6)
+    return want, {("segment_topk", "plain_on_card"): b3}
+
+
+def run_workload(dev, store, key, smi, frames=FRAMES):
+    """(a): one plan of the workload through FeedManager on the card, its
+    launches held to the path's, then its first frames to the CPU."""
+    from repro_torch.core import FeedManager, SyntheticAdapter
+    from repro_torch.kernels import launch_counts, path_stats
+    total = frames * BATCH
+    before, pbefore = launch_counts(), path_stats()
+    t0 = time.perf_counter()
+    h = FeedManager(store, device=dev).submit(workload_plan(
+        key, SyntheticAdapter(total=total, frame_size=BATCH,
+                              seed=SEED_STREAM), f"workload_{key}"))
+    stats = h.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if stats.stored != total:
+        raise AssertionError(f"plan {key}: stored {stats.stored} of {total}")
+    after, pafter = launch_counts(), path_stats()
+    counts = {k: after[k] - before[k] for k in after}
+    # the card's top-k paths (plan validation on meta tensors records
+    # "reference")
+    paths = {p: n - pbefore.get(p, 0) for p, n in pafter.items()
+             if n != pbefore.get(p, 0) and p[0] == "segment_topk"
+             and p[1] != "reference"}
+    c = stats.computing
+    want, want_paths = expected_workload_launches(key, c)
+    stages = {n: {"state_s": st.state_s, "state_builds": st.state_builds,
+                  "invocations": st.invocations}
+              for n, st in c.per_stage.items()}
+    log(f"workload {key} ({' > '.join(WORKLOAD[key])}): {total} tweets in "
+        f"{wall:.3f} s = {total / wall:,.0f} records/s; invocations "
+        f"{c.invocations}, parse_s={c.parse_s:.3f} upload_s="
+        f"{c.upload_s:.3f} convert_s={c.convert_s:.3f} state_s="
+        f"{c.state_s:.3f} apply_s={c.apply_s:.3f} [{smi}]")
+    built = [f"{n} {st['state_builds']} ({st['state_s']:.3f})"
+             for n, st in stages.items() if st["state_builds"]]
+    if built:
+        log(f"workload {key}: state builds by stage (feed, seconds): "
+            + ", ".join(built) + f" [{smi}]")
+    log(f"workload {key}: launches {counts} (expected {want}); top-k "
+        f"paths {paths} (expected {want_paths}) [{smi}]")
+    if counts != want or paths != want_paths:
+        raise AssertionError(f"plan {key}: launches {counts}, paths {paths}"
+                             f" != {want}, {want_paths}")
+    rows = plan_rows(h)
+    checked = held_to_cpu(store, workload_udf(key), rows, SEED_STREAM,
+                          f"workload {key} cross-check", smi)
+    busy = batch_layers(dev, store, workload_udf(key))
+    log(f"workload {key}: one thread, {busy['batches']} batches profiled: "
+        f"device busy {busy['device_busy_ms']:.2f} ms of "
+        f"{busy['profiled_wall_ms']:.2f} ms wall = "
+        f"{busy['device_busy_share']:.4f} [{smi}]")
+    log(f"workload {key}: one thread, ms per batch by stage (state, "
+        "apply; each stage timed alone): " + ", ".join(
+            f"{n} {v['state_ms']:.2f} {v['apply_ms']:.2f}"
+            for n, v in busy["stage_ms_per_batch"].items()) + f" [{smi}]")
+    return rows, {"wall_s": wall, "records_per_s": total / wall,
+                  "invocations": c.invocations, "parse_s": c.parse_s,
+                  "upload_s": c.upload_s, "convert_s": c.convert_s,
+                  "state_s": c.state_s, "apply_s": c.apply_s,
+                  "stages": stages, "launches": counts,
+                  "topk_paths": {f"{p[0]}:{p[1]}": n
+                                 for p, n in paths.items()},
+                  "cross_checked_rows": checked, "busy": busy}
+
+
+def replay_adapter(frames):
+    """Pre-drawn frames at memory speed: a backlog in every holder."""
+    from repro_torch.core.intake import Adapter
+
+    class Replay(Adapter):
+        def frames(self):
+            for f in frames:
+                if self._stop.is_set():
+                    return
+                yield f
+    return Replay()
+
+
+def elastic_feeds(dev, store, rows_a, smi):
+    """(c): plan A scaled up by 2 partitions mid-stream, bitwise equal by
+    id to (a)'s unscaled rows; then a feed of 3 partitions scaled down by
+    one under a backlog, which must store every tweet exactly once."""
+    from repro_torch.core import FeedManager, SyntheticAdapter
+    mgr = FeedManager(store, device=dev)
+    total = SCALE_FRAMES * BATCH
+    t0 = time.perf_counter()
+    h = mgr.submit(workload_plan("A", SyntheticAdapter(
+        total=total, frame_size=BATCH, seed=SEED_STREAM, rate=SCALE_RATE),
+        "scaled"))
+    added = h.scale_up(2)
+    stats = h.join(timeout=900)
+    wall = time.perf_counter() - t0
+    peak = stats.peak_partitions[h.stage_groups[0].name]
+    if added != 2 or peak != 4 or stats.stored != total:
+        raise AssertionError(f"scale_up: added {added}, peak {peak}, "
+                             f"stored {stats.stored} of {total}")
+    rows = plan_rows(h)
+    head = {k: v[:total] for k, v in rows_a.items()}
+    if not np.array_equal(head["id"], rows["id"]):
+        raise AssertionError("scale_up: stored ids differ from (a)'s")
+    bad = diff_columns(rows, head, np.arange(total))
+    if bad:
+        raise AssertionError(f"scale_up: columns differ from (a): {bad}")
+    log(f"elastic: scale_up(2) mid-feed, peak {peak} partitions, {total} "
+        f"rows bitwise equal to (a)'s in {len(rows)} columns; "
+        f"{total / wall:,.0f} records/s [{smi}]")
+    frames = list(SyntheticAdapter(total=DRAIN_FRAMES * BATCH,
+                                   frame_size=BATCH,
+                                   seed=SEED_STREAM + 3).frames())
+    total2 = DRAIN_FRAMES * BATCH
+    h2 = mgr.submit(workload_plan("A", replay_adapter(frames), "drain",
+                                  partitions=3))
+    time.sleep(0.2)                   # let the holders fill
+    dropped = h2.scale_down(1)
+    stats2 = h2.join(timeout=900)
+    ids = np.sort(np.asarray(h2.query().select("id").execute()["id"]))
+    if (dropped != 1 or stats2.stored != total2
+            or not np.array_equal(ids, np.arange(total2))
+            or stats2.computing.records != total2):
+        raise AssertionError(f"scale_down: dropped {dropped}, stored "
+                             f"{stats2.stored}, {len(ids)} ids of {total2}")
+    log(f"elastic: scale_down(1) of 3 partitions under a backlog drained "
+        f"{total2} tweets exactly once ({stats2.scale_downs} retired) "
+        f"[{smi}]")
+    return {"scaled_rows": total, "scale_up_added": added,
+            "peak_partitions": peak, "scaled_wall_s": wall,
+            "drained_rows": total2, "scale_down_dropped": dropped}
+
+
+def durable_child(durable_dir, seed) -> int:
+    """The interpreter that gets killed: builds the tables, warms the card
+    (one batch of plan A: context, kernels, first state builds), then runs
+    the durable plan on the card under rolling upserts and says READY
+    once its first batch is stored."""
+    from repro_torch.core import (ComputingRunner, ComputingSpec,
+                                  FeedManager, RefStore, SyntheticAdapter)
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.kernels import build_all
+    store = RefStore()
+    Q.make_reference_tables(store, scale=1.0, seed=SEED_TABLES)
+    build_all()
+    ComputingRunner(ComputingSpec(workload_udf("A"), BATCH), store,
+                    device="cuda").run(next(SyntheticAdapter(
+                        total=BATCH, frame_size=BATCH, seed=seed).frames()))
+    h = FeedManager(store, device="cuda").submit(
+        durable_plan(durable_dir, seed, rate=CRASH_RATE))
+    ups = start_updaters(store, seed)
+    # the ingest window opens with the first stored batch: the context,
+    # the kernels' first loads and the first state builds lie before it
+    while h.storage.count == 0:
+        time.sleep(0.01)
+    print("READY", flush=True)
+    h.join(timeout=900)
+    stop_updaters(ups)
+    return 0
+
+
+def start_child(durable_dir, seed):
+    """``durable_child`` in a fresh interpreter (a CUDA context does not
+    survive fork), once it says READY."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--durable-child",
+         durable_dir, "--seed", str(seed)], stdout=subprocess.PIPE,
+        text=True)
+    for line in proc.stdout:
+        if line.strip() == "READY":
+            return proc
+    raise AssertionError(f"crash child exited before READY "
+                         f"(rc {proc.wait()})")
+
+
+def live_ids(storage):
+    """Every live pk across the partitions, duplicates included."""
+    out = []
+    for part in storage.partitions:
+        snap = part.snapshot_view()
+        try:
+            for u in snap.units:
+                ids = np.asarray(u.read(("id",))["id"])
+                out.append(ids[snap.live_mask(ids, u.base)])
+        finally:
+            snap.release()
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+def table_lookup(store, table, col, keys):
+    snap = store[table].snapshot()
+    a = snap.arrays
+    tk, tv = a["key"][:snap.size], a[col][:snap.size]
+    at = np.clip(np.searchsorted(tk, keys), 0, max(len(tk) - 1, 0))
+    return np.where(tk[at] == keys, tv[at], -1).astype(tv.dtype)
+
+
+def crash_round(dev, store, durable_dir, seed, rng, smi):
+    """(b), one round: start the child, SIGKILL it at a seeded random
+    point of its ingest window, resume on the card under rolling upserts,
+    quiesce them, let repair converge; then no row lost or doubled, and
+    every row's Q1 and Q5 columns current under the final tables."""
+    from repro_torch.core import FeedManager
+    from repro_torch.core.durability import CheckpointStore
+    from repro_torch.core.enrich import queries as Q
+    total = CRASH_FRAMES * BATCH
+    proc = start_child(durable_dir, seed)
+    window = total / CRASH_RATE
+    delay = float(rng.uniform(0.1 * window, 0.7 * window))
+    try:
+        time.sleep(delay)
+    finally:
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()
+    ck = CheckpointStore(durable_dir).load() or {}
+    t0 = time.perf_counter()
+    h = FeedManager(store, device=dev).resume(
+        durable_plan(durable_dir, seed))
+    rt = h.durability
+    backlog = rt.replayed_records
+    ups = start_updaters(store, seed + 7)
+    deadline = time.monotonic() + 600
+    while (rt.ledger.watermark() < rt.replay_target_seq
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    recovery_s = time.perf_counter() - t0
+    # upserts go on while the resumed intake runs, and at least 3 rounds
+    while (((h.intake is not None and h.intake.is_alive())
+            or min(u.updates for u in ups) < 3)
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    updates = stop_updaters(ups)
+    stats = h.join(timeout=900)
+    wall = time.perf_counter() - t0
+    ckpt = h.metrics()["checkpoint_s"]     # the resumed feed's checkpoints
+    ids = live_ids(h.storage)
+    uniq = np.unique(ids)
+    lost, dups = total - len(uniq), len(ids) - len(uniq)
+    if lost or dups or not h.repair.converged():
+        raise AssertionError(f"crash round: lost {lost}, duplicated {dups},"
+                             f" repair converged {h.repair.converged()}")
+    rows = h.query().select("id", "country", "user_name_hash",
+                            *Q1_Q5_COLUMNS).execute()
+    order = np.argsort(rows["id"], kind="stable")
+    rows = {k: np.asarray(v)[order] for k, v in rows.items()}
+    want = {"safety_level": table_lookup(store, "safety_levels",
+                                         "safety_level", rows["country"]),
+            "suspect_threat_level": table_lookup(
+                store, "suspicious_names", "threat_level",
+                rows["user_name_hash"]),
+            "suspect_religion": table_lookup(
+                store, "suspicious_names", "religion",
+                rows["user_name_hash"])}
+    bad = diff_columns(rows, want, np.arange(len(rows["id"])))
+    if bad:
+        raise AssertionError(f"crash round: rows not current under the "
+                             f"final tables: {bad}")
+    checked = held_to_cpu(store, Q.Q1.then(Q.Q5), rows, seed,
+                          "crash round: Q1 > Q5 vs CPU", smi,
+                          cols=["id", *Q1_Q5_COLUMNS])
+    log(f"crash round: SIGKILL at +{delay:.2f} s of a {window:.2f} s "
+        f"window, the last checkpoint at frame {ck.get('watermark', 0)} "
+        f"of {ck.get('last_seq', 0)} logged; replay backlog {backlog} "
+        f"records; recovery {recovery_s:.3f} s (resume until the backlog "
+        f"is re-stored); resumed feed {stats.records_in} records in, "
+        f"{wall:.2f} s to converged, {ckpt.count} checkpoints of "
+        f"{ckpt.sum / max(ckpt.count, 1):.3f} s mean, "
+        f"{ckpt.percentile(1.0):.3f} s max; {updates} reference upserts, "
+        f"repaired {stats.repaired_rows}; lost 0, duplicated 0; "
+        f"{len(uniq)} rows current [{smi}]")
+    return {"kill_after_s": delay, "window_s": window,
+            "checkpoint_watermark": ck.get("watermark", 0),
+            "checkpoint_last_seq": ck.get("last_seq", 0),
+            "replay_backlog": backlog, "recovery_s": recovery_s,
+            "resumed_records_in": stats.records_in,
+            "wall_to_converged_s": wall, "updates": updates,
+            "checkpoints": ckpt.count, "checkpoint_s_sum": ckpt.sum,
+            "checkpoint_s_max": ckpt.percentile(1.0),
+            "repaired_rows": stats.repaired_rows,
+            "stale_rows": stats.stale_rows, "lost": lost, "duplicated": dups,
+            "cpu_checked_rows": checked}
+
+
+def durable_feed(dev, store, out_dir, smi):
+    """Phase 14: (a) the three workload plans, (c) elasticity, then (b)
+    the crash rounds (last: their upserts change the tables (a) and (c)
+    are compared under)."""
+    import shutil
+    base = os.path.join(out_dir, "durable")
+    shutil.rmtree(base, ignore_errors=True)
+    res = {"plans": {}}
+    for key in WORKLOAD:
+        rows, res["plans"][key] = run_workload(dev, store, key, smi)
+        if key == "A":
+            rows_a = rows
+    res["elastic"] = elastic_feeds(dev, store, rows_a, smi)
+    rng = np.random.default_rng(29)
+    try:
+        res["crash"] = [crash_round(dev, store,
+                                    os.path.join(base, f"round{r}"),
+                                    SEED_CRASH + r, rng, smi)
+                        for r in range(CRASH_ROUNDS)]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2405,12 +2915,20 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
                     help="directory for the measurements JSON and the "
                          "ptxas log")
-    out_dir = ap.parse_args().out
+    ap.add_argument("--durable-child", metavar="DIR",
+                    help="(phase 14's crash rounds) run the durable feed "
+                         "into DIR until killed")
+    ap.add_argument("--seed", type=int, default=SEED_CRASH,
+                    help="the durable child's stream seed")
+    args = ap.parse_args()
+    out_dir = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.core  # noqa: F401  (fails outside a checkout)
+    if args.durable_child:
+        return durable_child(args.durable_child, args.seed)
     from repro_torch.core import RefStore
     from repro_torch.core.enrich import queries as Q
     from repro_torch.kernels import (all_kernels, build_all, launch_counts,
@@ -2504,6 +3022,25 @@ def main() -> int:
     read["bucket_histogram"] = [{"op": op, "rows": b, "dispatches": n}
                                 for (op, b), n in sorted(hist.items())]
     read["aggregation_device_ms"] = weigh_buckets(dev, hist, rng)
+    # phase 14 (run here, before serving takes the card's memory): the
+    # durable, elastic feed of the whole workload, from counts and path
+    # stats of 0.  Its three kernels must launch, segment_topk (Q3's
+    # 50,000 countries are outside its envelope) and flash must not
+    reset_launch_counts()
+    reset_path_stats()
+    durable = durable_feed(dev, store, out_dir, smi)
+    dcounts = launch_counts()
+    dpaths = path_stats()
+    log(f"durable: launches {dcounts}; top-k paths "
+        f"{ {p: n for p, n in dpaths.items() if p[0] == 'segment_topk'} } "
+        f"[{smi}]")
+    if (dcounts["segment_topk"] or dcounts["flash_attention"]
+            or dpaths.get(("segment_topk", "kernel"))
+            or not dpaths.get(("segment_topk", "plain_on_card"))
+            or 0 in (dcounts["hash_probe"], dcounts["spatial_join"],
+                     dcounts["segment_reduce"])):
+        raise AssertionError(f"the durable feed's launches {dcounts} or "
+                             f"paths {dpaths} are not its path's")
     # phase 8, serving, from counts and path stats of 0: every admission
     # runs the flash kernel once per layer in prefill and once in the
     # first-token apply, and no attention takes the plain version
@@ -2581,6 +3118,7 @@ def main() -> int:
                    "read_path": rcounts[names[k["name"]]],
                    "serve": scounts[names[k["name"]]],
                    "train": tcounts[names[k["name"]]],
+                   "feed_durable": dcounts[names[k["name"]]],
                    **{f"serve_{fam}": c[names[k["name"]]]
                       for fam, c in fam_counts.items()}}
         k["launches_by_path"] = by_path
@@ -2594,7 +3132,8 @@ def main() -> int:
                    "feed": split, "layers": layers,
                    "cross_checked_rows": checked,
                    "query_s": q_s, "read_path": read, "serve": serve,
-                   "train": train, "families": families},
+                   "train": train, "families": families,
+                   "durable": durable},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

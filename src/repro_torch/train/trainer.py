@@ -150,7 +150,9 @@ class Trainer:
                 if self.restarts > self.tcfg.max_restarts or \
                         self.ckpt is None:
                     raise
-                # the state may be half-updated: rebuild from checkpoint
+                # the state may be half-updated: rebuild from checkpoint,
+                # the newest one issued (a save may still be writing it)
+                self.ckpt.wait()
                 self.state = None
                 self.state = self._init_state()
                 if latest_step(self.tcfg.ckpt_dir) is not None:

@@ -751,3 +751,143 @@ def test_flash_kernel_refuses_inputs_that_require_grad(card):
     with torch.no_grad():
         out = fa_kernel.flash_attention(q, kv, kv)
     assert not out.requires_grad and launch_counts()["flash_attention"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the rest of the workload, and a durable feed, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tables_1x():
+    """make_reference_tables(scale=1.0, seed=7): the paper's cardinalities
+    (50,000 countries, 10,000 sensitive words, 1,000,000 names)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand kernels have no CPU mode)")
+    from repro_torch.core import RefStore
+    from repro_torch.core.enrich import queries as Q
+    store = RefStore()
+    Q.make_reference_tables(store, scale=1.0, seed=7)
+    return store
+
+
+# per UDF at one 6,720-tweet batch: (hash_probe, spatial_join,
+# segment_reduce) launches and the dispatch paths recorded.  Q3's top-3
+# over 50,000 countries is outside segment_topk's envelope (at most 2,048
+# segments): the composite sort runs on the card, recorded as such
+WORKLOAD_ON_CARD = {
+    "q2": ((0, 0, 1), {("segment_sum", "kernel"): 1}),
+    "q3": ((0, 0, 0), {("segment_topk", "plain_on_card"): 1}),
+    "udf1": ((0, 0, 0), {}),
+    "udf2": ((0, 0, 0), {}),
+    "q5": ((1, 1, 0), {}),
+    "q7": ((0, 1, 0), {}),
+}
+
+
+@pytest.mark.parametrize("udf", sorted(WORKLOAD_ON_CARD))
+def test_workload_udf_on_card_equals_cpu_at_scale_1(card, tables_1x, udf):
+    """One batch of 6,720 tweets through a ComputingRunner on the card and
+    on the CPU over the scale-1.0 tables: every output column equal, with
+    dtypes and shapes, and the kernels launched as the path requires (no
+    segment_topk or flash launch anywhere)."""
+    from repro_torch import kernels
+    from repro_torch.core import ComputingRunner, ComputingSpec
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.core.records import SyntheticTweets, parse_json_lines
+    batch = parse_json_lines(SyntheticTweets(seed=3).raw_lines(6720))
+    u = Q.get_udf(udf)
+    kernels.reset_launch_counts()
+    kernels.path_tape_start()
+    got = ComputingRunner(ComputingSpec(u, 6720), tables_1x,
+                          device=card).run(dict(batch))
+    paths = kernels.path_tape_stop()
+    counts = kernels.launch_counts()
+    want = ComputingRunner(ComputingSpec(u, 6720), tables_1x,
+                           device="cpu").run(dict(batch))
+    launches, want_paths = WORKLOAD_ON_CARD[udf]
+    assert (counts["hash_probe"], counts["spatial_join"],
+            counts["segment_reduce"]) == launches
+    assert counts["segment_topk"] == counts["flash_attention"] == 0
+    assert {p: n for p, n in paths.items()
+            if p[0] in ("segment_sum", "segment_topk")} == want_paths
+    assert set(got) == set(want)
+    for key in want:
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        assert g.dtype == w.dtype and g.shape == w.shape, key
+        np.testing.assert_array_equal(g, w, err_msg=key)
+    if udf == "q2":
+        assert got["religious_population"].dtype == np.int64
+        assert (got["religious_population"] > 0).any()
+    if udf == "udf2":
+        assert got["safety_check_flag"].any()
+
+
+def copy_crash_image(src, dst):
+    """Copy a live durable dir in crash-causal order: checkpoints, then
+    store manifests, then data files (WAL and npz segments), so metadata
+    never points at data older than itself.  Files may vanish mid-walk."""
+    import os
+    import shutil
+    paths = []
+    for root, _, names in os.walk(src):
+        for n in names:
+            if n.endswith(".tmp"):
+                continue
+            rank = (0 if n.startswith("CHECKPOINT") else
+                    1 if n.startswith("MANIFEST") else 2)
+            paths.append((rank, os.path.join(root, n)))
+    for _, p in sorted(paths):
+        out = os.path.join(dst, os.path.relpath(p, src))
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        try:
+            shutil.copyfile(p, out)
+        except FileNotFoundError:
+            continue
+
+
+def test_durable_crash_image_resumes_on_card(card, tmp_path):
+    """An image of a durable Q1 > Q2 > Q3 feed on the card, copied while it
+    runs, resumes on the card exactly once; a second copy resumed on the
+    CPU stores the same rows by id."""
+    import shutil
+    import time
+    from repro_torch.core import (DurableSpec, FeedManager, RefStore,
+                                  SyntheticAdapter, pipeline)
+    from repro_torch.core.enrich import queries as Q
+    store = RefStore()
+    Q.make_reference_tables(store, scale=0.02, seed=7)
+    total = 4000
+
+    def plan(d, rate=None):
+        return (pipeline(SyntheticAdapter(total=total, frame_size=200,
+                                          seed=3, rate=rate), "dur")
+                .parse(batch_size=200).options(num_partitions=2)
+                .enrich(Q.Q1.then(Q.Q2).then(Q.Q3))
+                .store(durable=DurableSpec(dir=str(d),
+                                           checkpoint_interval_s=0.1,
+                                           fsync_interval_s=0.02)))
+
+    live = tmp_path / "live"
+    h = FeedManager(store, device=card).submit(plan(live, rate=4000.0))
+    time.sleep(0.5)
+    image = tmp_path / "image"
+    copy_crash_image(str(live), str(image))
+    assert h.join(timeout=120).stored == total
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        mine = tmp_path / dev
+        shutil.copytree(image, mine)
+        r = FeedManager(store, device=dev).resume(plan(live),
+                                                  durable_dir=str(mine))
+        assert r.durability.recovered
+        r.join(timeout=120)
+        got = r.query().select("id", "safety_level", "religious_population",
+                               "largest_religions").execute()
+        ids = np.asarray(got["id"])
+        assert len(ids) == total and set(ids.tolist()) == set(range(total))
+        order = np.argsort(ids)
+        rows[dev] = {k: np.asarray(v)[order] for k, v in got.items()}
+    for k in rows["cpu"]:
+        assert rows["cuda"][k].dtype == rows["cpu"][k].dtype, k
+        np.testing.assert_array_equal(rows["cuda"][k], rows["cpu"][k],
+                                      err_msg=k)
