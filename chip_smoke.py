@@ -110,11 +110,32 @@ Phases, each fatal on failure:
      every row's Q1 and Q5 columns current under the final tables (by
      numpy lookup for every row, and against a CPU Q1 > Q5 on the first
      2 frames); the replay backlog and the recovery seconds of each round.
-Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13) runs with the launch counts
-set to 0 just before it and read just after; the kernels line gives each
-kernel's launches on the paths (feed, read_path, serve, train,
-feed_durable, serve_moe, serve_ssm, serve_vlm, serve_encdec) and their
-sum.
+ 15. training the other families on the card, after phase 13's state is
+     freed, with TF32 on as in phase 9: first Q5 over one batch, every
+     column equal to the CPU's (its distances take no cuBLAS product);
+     then olmoe-1b-7b (4 of 16 layers at full width), mamba2-130m and
+     internvl2-2b whole and whisper-medium (12 + 12 of 24 + 24 layers),
+     each through the Trainer fed by the LM data plane (2 x 4,096
+     positions, internvl2's first 256 seeded patch rows; whisper 8 x 448
+     tokens over 8 x 1,536 seeded frames):
+     every loss and gradient norm finite, the exact step count, no
+     kernel launched and every attention the plain chunked version;
+     tokens/s, the step split, peak memory and train_mfu; one step of a
+     cut model from a seeded state held to the CPU's (FAMILY_TRAIN_TOL,
+     from scripts/family_train_spread.py);
+ 16. the distributed modules at world size 1: an NCCL group of one rank
+     over a file store, a (1, 1) mesh, moe_ffn_ep against moe_ffn at
+     olmoe's width (capacity 8.0), a 2-layer olmoe's loss with moe_ep on
+     and off, one Trainer step on the mesh with moe_ep,
+     psum_compressed against decompress(compress(g)), and a checkpoint
+     of the mesh's state restored onto a new mesh's placements,
+     bit-equal.
+Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16) runs with
+the launch counts set to 0 just before it and read just after; the
+kernels line gives each kernel's launches on the paths (feed, read_path,
+serve, train, feed_durable, serve_moe, serve_ssm, serve_vlm,
+serve_encdec, train_moe, train_ssm, train_vlm, train_encdec,
+train_distributed) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -127,6 +148,7 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2489,12 +2511,22 @@ def train_check_readings(dev, row, seed, fault=None, cpu=None, cfg=None):
     Returns (readings, the CPU's result).  ``cfg`` defaults to the
     check's model."""
     from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
+    cfg = cfg or get_config(SERVE_ARCH).replace(num_layers=CHECK_LAYERS)
+    return step_readings(dev, cfg, TRAIN_LR, row, seed, fault, cpu)
+
+
+def step_readings(dev, cfg, lr, row, seed, fault=None, cpu=None):
+    """One train step of ``cfg`` on ``row`` from a state seeded by
+    ``seed`` on the card, with ``fault`` planted (``planted``), and on
+    the CPU (``cpu``: a result of an earlier call to reuse): |d loss|,
+    |d grad_norm| / grad_norm and, per leaf, |d update| / |update|
+    (update = new - old parameters), its largest over the leaves; a
+    NaN reading (a NaN gradient) reads inf.  Returns (readings, the
+    CPU's result)."""
     from repro_torch.models.params import tree_flatten, tree_map
     from repro_torch.train import OptConfig
     from repro_torch.train.steps import init_train_state, make_train_step
-    cfg = cfg or get_config(SERVE_ARCH).replace(num_layers=CHECK_LAYERS)
-    opt = OptConfig(lr=TRAIN_LR, warmup_steps=0, total_steps=10)
+    opt = OptConfig(lr=lr, warmup_steps=0, total_steps=10)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(cfg, opt, gen)
     # from step 3 with seeded moments (m ~ N(0, 1e-5), v = m'^2): zero
@@ -2513,37 +2545,33 @@ def train_check_readings(dev, row, seed, fault=None, cpu=None, cfg=None):
     if cpu is None:
         cpu_state = tree_map(lambda x: x.to("cpu", copy=True), state)
     step = make_train_step(cfg, opt)
-    orig = L._sdpa
-
-    def planted(cfg_, q, k, v, pq, pk, sq, sk, causal):
-        if fault == "nomask":
-            sq = sk = None
-        out = orig(cfg_, q, k, v, pq, pk, sq, sk, causal)
-        return out.detach() if fault == "detach" else out
-    L._sdpa = planted
-    try:
+    with planted(fault):
         new, cm = step(state, row)
-    finally:
-        L._sdpa = orig
     card = [x.to(**host) for x in tree_flatten(new["params"])[0]]
     card_m = {k: float(v) for k, v in cm.items()}
     del new, state
     if cpu is None:
-        new, pm = step(cpu_state, row)
+        crow = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in row.items()}
+        new, pm = step(cpu_state, crow)
         cpu = {"params": [x.to(**host)
                           for x in tree_flatten(new["params"])[0]],
                "metrics": {k: float(v) for k, v in pm.items()}}
         del new, cpu_state
+
+    def far(x):
+        return float(x) if np.isfinite(x) else float("inf")
     upd = {}
     for name, b, c, p in zip(names, before, card, cpu["params"]):
         want = p - b
-        upd[name] = float(torch.linalg.vector_norm(c - p)
-                          / torch.linalg.vector_norm(want).clamp(min=1e-30))
+        upd[name] = far(float(torch.linalg.vector_norm(c - p)
+                              / torch.linalg.vector_norm(want).clamp(
+                                  min=1e-30)))
     worst = max(upd, key=upd.get)
     pm = cpu["metrics"]
-    return ({"loss": abs(card_m["loss"] - pm["loss"]),
-             "grad_norm": abs(card_m["grad_norm"] - pm["grad_norm"])
-             / pm["grad_norm"],
+    return ({"loss": far(abs(card_m["loss"] - pm["loss"])),
+             "grad_norm": far(abs(card_m["grad_norm"] - pm["grad_norm"])
+                              / pm["grad_norm"]),
              "update": upd[worst], "update_leaf": worst,
              "card_loss": card_m["loss"], "cpu_loss": pm["loss"],
              "card_grad_norm": card_m["grad_norm"],
@@ -2910,6 +2938,532 @@ def family_phase(fam, dev):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training the moe, ssm, vlm and encdec families on the card
+# ---------------------------------------------------------------------------
+
+# phase 15: each family at full width through the Trainer, fed by the LM
+# data plane; depth where the whole model's float32 state and its
+# activations at the step's tokens fit one card (olmoe whole holds 103 GiB
+# of state: 4 of its 16 layers hold 28 GiB).  Rows x tokens: 2 x 4,096
+# (internvl2's 4,096 positions are 256 patch rows and 3,840 tokens);
+# whisper trains at its published text context of 448 tokens, 8 rows of
+# them over 8 x 1,536 frames, at 12 + 12 of its 24 + 24 layers: at the
+# whole depth its random-init gradient reaches 2.5e24 (repro's, float32,
+# on the CPU; the port's alike), the float32 sum of squares overflows and
+# the clipping norm is inf (on the card: inf at every step); at 12 + 12
+# the norm is 2.1e16.  internvl2 checkpoints whole layers (remat
+# "full", not its config's "dots"): "dots" keeps every score block of the
+# plain chunked attention, 24 layers of which at 4,096 positions did not
+# fit beside its 25 GiB of state (out of memory on the card).  The
+# card-vs-CPU check takes one step of a cut model (check_layers;
+# whisper's encoder cut as its decoder) on check_seq positions of one
+# packed row, from a seeded state.
+FAMILY_TRAIN = {
+    "moe": {"arch": "olmoe-1b-7b", "layers": 4, "seq": 4096, "batch": 2,
+            "check_layers": 1, "check_seq": 512},
+    "ssm": {"arch": "mamba2-130m", "layers": None, "seq": 4096, "batch": 2,
+            "check_layers": 24, "check_seq": 512},
+    "vlm": {"arch": "internvl2-2b", "layers": None, "seq": 4096, "batch": 2,
+            "check_layers": 1, "check_seq": 512, "remat": "full"},
+    "encdec": {"arch": "whisper-medium", "layers": 12, "seq": 448,
+               "batch": 8, "check_layers": 1, "check_seq": 448},
+}
+FAMILY_TRAIN_WARM, FAMILY_TRAIN_TIMED = 1, 4
+FAMILY_TRAIN_LR = 3e-4
+# faults the spread script plants on the card (scripts/family_train_spread
+# .py): moe the experts' output or the router's weights detached; ssm
+# repro's mask after the exp (NaN gradients at chunk 256) or the SSD's B
+# input detached; vlm the attention output detached or the segment mask
+# dropped (as phase 9); encdec the cross-attention detached or a causal
+# encoder
+FAMILY_TRAIN_FAULTS = {"moe": ("expert_detach", "router_detach"),
+                       "ssm": ("mask_after_exp", "b_detach"),
+                       "vlm": ("detach", "nomask"),
+                       "encdec": ("cross_detach", "enc_causal")}
+# Card against CPU after one step from the same state: |d loss|, |d
+# grad_norm| / grad_norm, and the worst leaf's |d update| / |update|.
+# scripts/family_train_spread.py measured them (3 trials; NVIDIA H100
+# 80GB HBM3, 700 W): the worst sound reading | each fault's least:
+#   moe     loss 3.91e-5 | not separable (the faults cut gradients, not
+#           the forward); grad_norm 1.16e-3 | 9.1e-5, 8.0e-5 (not
+#           separable); update 0.375 | expert_detach 0.801,
+#           router_detach 0.801;
+#   ssm     loss 7.68e-4 | not separable; grad_norm 0.0300 |
+#           mask_after_exp inf (NaN), b_detach 0.380; update 1.512 |
+#           inf, 8.968;
+#   vlm     loss 1.66e-4 | nomask 6.2e-4; grad_norm 0.00713 | detach
+#           0.885, nomask 0.201; update 0.583 | 31.3, 1.148;
+#   encdec  loss 3.81e-4 | enc_causal 0.00782; grad_norm 0.0400 |
+#           cross_detach 0.882, enc_causal 0.031; update 1.546 | 25.0,
+#           2.430.
+# Each limit lies between where they separate; where they do not, it
+# only bounds a gross failure.  Every faulty trial passes a limit.
+FAMILY_TRAIN_TOL = {
+    "moe": {"loss": 0.005, "grad_norm": 0.05, "update": 0.6},
+    "ssm": {"loss": 0.005, "grad_norm": 0.2, "update": 5.0},
+    "vlm": {"loss": 0.005, "grad_norm": 0.1, "update": 0.9},
+    "encdec": {"loss": 0.004, "grad_norm": 0.1, "update": 2.0},
+}
+
+
+def family_train_cfg(fam, layers=None):
+    """The phase's config, cut to ``layers`` (encdec: both stacks)."""
+    from repro_torch.configs import get_config
+    spec = FAMILY_TRAIN[fam]
+    cfg = get_config(spec["arch"]).replace(
+        remat=spec.get("remat", get_config(spec["arch"]).remat))
+    n = layers or spec["layers"]
+    if n is None:
+        return cfg
+    if cfg.family == "encdec":
+        return cfg.replace(num_layers=n, encoder_layers=n)
+    return cfg.replace(num_layers=n)
+
+
+def family_train_flops(cfg, seq: int, batch: int) -> float:
+    """Model FLOPs of one training step (forward and backward: 3 x the
+    forward's 2 per multiply-add).  Weights: 6 x the parameters a position
+    uses, per position: every parameter, except that an MoE token uses
+    the router and its k of E experts.  Attention, per position: causal
+    self-attention 6 * L * H * D * S (S/2 keys on average); the SSM has
+    none; encdec's encoder attends to all F frames non-causally (12 * L *
+    H * D * F per frame), its decoder causally to its tokens and to all
+    F frames (12 * L * H * D * F per token), and its encoder's weights
+    run once per frame.  ``seq`` counts a vlm's patch rows."""
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_flatten
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    if cfg.family == "encdec":
+        params = api.param_shapes(cfg)
+        enc = sum(x.numel() for x in tree_flatten(params["enc_layers"])[0])
+        dec = api.param_count(cfg) - enc
+        f = cfg.num_frontend_tokens
+        per_row = (f * (6.0 * enc + 12.0 * cfg.encoder_layers * h * d * f)
+                   + seq * (6.0 * dec + 6.0 * cfg.num_layers * h * d * seq
+                            + 12.0 * cfg.num_layers * h * d * f))
+        return batch * per_row
+    n = api.param_count(cfg)
+    if cfg.num_experts:
+        n -= (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model \
+            * cfg.d_ff * cfg.num_layers
+    attn = 0.0 if cfg.family == "ssm" else \
+        6.0 * cfg.num_layers * h * d * seq
+    return batch * seq * (6.0 * n + attn)
+
+
+def with_frontend(cfg, batches, dev, seed=SERVE_SEED + 3):
+    """The vlm's patch rows and the encdec's frames with each packed
+    batch: seeded N(0, 1) rows drawn once on ``dev``.  Not the serving
+    phases' zeros: zero rows stay exactly zero through every layer, so
+    each rmsnorm's Jacobian at zero (1 / sqrt(eps) = 1,000) multiplies
+    the gradient that reaches them once a layer, and at 24 layers it
+    overflows (whisper's first step on the card: NaN; repro's gradient
+    overflows alike)."""
+    if cfg.family not in ("vlm", "encdec"):
+        yield from batches
+        return
+    fe = None
+    for b in batches:
+        if fe is None:
+            shape = (b["tokens"].shape[0], cfg.num_frontend_tokens,
+                     cfg.d_model)
+            fe = torch.randn(shape, generator=torch.Generator(
+                device=dev).manual_seed(seed), device=dev).to(
+                    torch.bfloat16)
+        yield dict(b, frontend=fe)
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """Plant ``fault`` (phase 9's "detach" and "nomask", or one of
+    FAMILY_TRAIN_FAULTS) into the model code; None plants nothing."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import ssm as S
+    if fault is None:
+        yield
+        return
+    swaps = []
+    if fault == "expert_detach":
+        orig = M._dispatch_combine
+        swaps.append((M, "_dispatch_combine",
+                      lambda *a: orig(*a).detach()))
+    elif fault == "router_detach":
+        orig = M._route
+        swaps.append((M, "_route", lambda lg, k: tuple(
+            x.detach() for x in orig(lg, k))))
+    elif fault == "mask_after_exp":
+        swaps.append((S, "_decay", lambda diff, tri: torch.where(
+            tri, torch.exp(diff), 0.0)))
+    elif fault == "b_detach":
+        orig = S.ssd_chunked
+        swaps.append((S, "ssd_chunked", lambda cfg, xh, dt, b, c, *a:
+                      orig(cfg, xh, dt, b.detach(), c, *a)))
+    elif fault in ("detach", "nomask"):
+        orig = L._sdpa
+
+        def sdpa(cfg_, q, k, v, pq, pk, sq, sk, causal):
+            if fault == "nomask":
+                sq = sk = None
+            out = orig(cfg_, q, k, v, pq, pk, sq, sk, causal)
+            return out.detach() if fault == "detach" else out
+        swaps.append((L, "_sdpa", sdpa))
+    elif fault == "cross_detach":
+        orig = L.cross_attention
+
+        def cross(*a):
+            out, kv = orig(*a)
+            return out.detach(), kv
+        swaps.append((L, "cross_attention", cross))
+    elif fault == "enc_causal":
+        orig = L.attention
+        swaps.append((L, "attention", lambda *a, causal=True: orig(
+            *a, causal=True)))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, fn in swaps:
+            setattr(m, n, fn)
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def family_check_row(fam, store, dev, cfg, seed=0):
+    """The check's batch: the first row of a batch of the family's LM data
+    plane, cut to check_seq positions (a vlm's token run after its patch
+    rows), with seeded frontend rows for vlm and encdec."""
+    from repro_torch.models import api
+    spec = FAMILY_TRAIN[fam]
+    n = api.token_len(cfg, spec["check_seq"])
+    src = train_source(store, dev, cfg, seq=n, batch=1, frames=1)
+    try:
+        it = iter(src)
+        for _ in range(seed):
+            next(it)
+        row = next(it)
+    finally:
+        src.close()
+    return next(with_frontend(cfg, [row], dev, seed=SERVE_SEED + 3 + seed))
+
+
+def family_step_readings(fam, dev, row, seed, fault=None, cpu=None):
+    """``step_readings`` of the family's check model (FAMILY_TRAIN's
+    check_layers at full width)."""
+    cfg = family_train_cfg(fam, FAMILY_TRAIN[fam]["check_layers"])
+    r, cpu = step_readings(dev, cfg, FAMILY_TRAIN_LR, row, seed, fault, cpu)
+    r.pop("update_by_leaf")
+    r["check_layers"] = cfg.num_layers
+    return r, cpu
+
+
+def family_train(fam, dev, store):
+    """Phase 15 for one family: the Trainer over the LM data plane from
+    counts and path stats of 0; every loss and gradient norm finite, the
+    exact step count, no kernel launched and every training attention
+    the plain chunked version on the card; tokens/s, the step split,
+    peak memory and train_mfu; then the card-vs-CPU check.  Returns
+    (measurements, the run's launches)."""
+    from repro_torch.kernels import (launch_counts, path_stats,
+                                     reset_launch_counts, reset_path_stats)
+    from repro_torch.models import api
+    from repro_torch.train import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    spec = FAMILY_TRAIN[fam]
+    tag = f"train {fam}"
+    cfg = family_train_cfg(fam)
+    steps = FAMILY_TRAIN_WARM + FAMILY_TRAIN_TIMED
+    opt = OptConfig(lr=FAMILY_TRAIN_LR, warmup_steps=FAMILY_TRAIN_WARM,
+                    total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, TrainerConfig(steps=steps, log_every=1,
+                                              seed=TRAIN_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.param_count(cfg)
+    toks = api.token_len(cfg, spec["seq"])
+    log(f"{tag}: {spec['arch']} at full width, {cfg.num_layers} layers"
+        f"{'' if spec['layers'] is None else ' (cut)'}, {n_params:,} "
+        f"parameters ({cfg.param_dtype}, activations {cfg.dtype}), remat "
+        f"{cfg.remat}: drawn in {init_s:.3f} s")
+    source = train_source(store, dev, cfg, seq=toks, batch=spec["batch"])
+    reset_launch_counts()
+    reset_path_stats()
+    try:
+        t0 = time.perf_counter()
+        hist = trainer.run(with_frontend(cfg, iter(source), dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        source.close()
+    counts, paths = launch_counts(), path_stats()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if (int(trainer.state["step"]) != steps or len(hist) != steps
+            or not all(np.isfinite(losses + norms))):
+        raise AssertionError(f"{tag}: {int(trainer.state['step'])} steps "
+                             f"of {steps}, losses {losses}, gradient norms "
+                             f"{norms}")
+    # the plain version on the card ("reference" in a CPU rehearsal)
+    plain = ("flash_attention",
+             "plain_on_card" if dev.type == "cuda" else "reference")
+    if any(counts.values()) or any(p != plain for p in paths) \
+            or (fam == "ssm") != (not paths):
+        raise AssertionError(f"{tag}: launches {counts} or attention paths "
+                             f"{paths}: training takes no kernel, and every "
+                             "attention is the plain chunked version")
+    timed = trainer.step_times[FAMILY_TRAIN_WARM:]
+    step_s = [t["data_wait_s"] + t["grad_s"] + t["update_s"] for t in timed]
+    med = float(statistics.median(step_s))
+    timed_wall = hist[-1]["wall_s"] - hist[FAMILY_TRAIN_WARM - 1]["wall_s"]
+    flops = family_train_flops(cfg, spec["seq"], spec["batch"])
+    res = {"arch": spec["arch"], "layers": cfg.num_layers,
+           "parameters": n_params, "seq": spec["seq"], "tokens": toks,
+           "batch": spec["batch"], "steps": steps, "init_s": init_s,
+           "wall_s": wall, "losses": losses, "grad_norms": norms,
+           "launches": counts,
+           "paths": {f"{a}/{b}": n for (a, b), n in paths.items()},
+           "step_ms_median": med * 1e3,
+           "data_wait_ms_median": statistics.median(
+               t["data_wait_s"] for t in timed) * 1e3,
+           "forward_backward_ms_median": statistics.median(
+               t["grad_s"] for t in timed) * 1e3,
+           "optimizer_ms_median": statistics.median(
+               t["update_s"] for t in timed) * 1e3,
+           "tokens_per_s": FAMILY_TRAIN_TIMED * spec["batch"] * toks
+           / timed_wall,
+           "model_flops_per_step": flops,
+           "train_mfu": flops / med / PEAK_BF16_S,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    extra = spec["seq"] - toks
+    log(f"{tag}: {steps} steps ({FAMILY_TRAIN_WARM} warm) of "
+        f"{spec['batch']} x {toks} tokens"
+        f"{f' (after {extra} patch rows)' if extra else ''}"
+        f" in {wall:.2f} s: {res['tokens_per_s']:.1f} tokens/s; step "
+        f"{med * 1e3:.1f} ms (median) = data wait "
+        f"{res['data_wait_ms_median']:.2f} + forward + backward "
+        f"{res['forward_backward_ms_median']:.1f} + optimizer "
+        f"{res['optimizer_ms_median']:.1f}; peak memory "
+        f"{res['peak_memory_bytes'] / 2**30:.2f} GiB; train_mfu "
+        f"{res['train_mfu']:.4f} ({flops / 1e12:.2f} TFLOP a step over "
+        f"{PEAK_BF16_S / 1e12:.0f} TFLOP/s bf16); losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row = family_check_row(fam, store, dev, family_train_cfg(
+        fam, spec["check_layers"]))
+    r, _ = family_step_readings(fam, dev, row, TRAIN_SEED + 1)
+    r["seconds"] = time.perf_counter() - t0
+    tol = FAMILY_TRAIN_TOL[fam]
+    log(f"{tag} cross-check ({r['check_layers']} layer(s), "
+        f"{spec['check_seq']} positions): |d loss| {r['loss']:.4g} (card "
+        f"{r['card_loss']:.5f}, CPU {r['cpu_loss']:.5f}), |d grad_norm| / "
+        f"grad_norm {r['grad_norm']:.4g}, worst |d update| / |update| "
+        f"{r['update']:.4g} ({r['update_leaf']}); limits {tol}; "
+        f"{r['seconds']:.1f} s")
+    if not all(r[k] <= v for k, v in tol.items()):
+        raise AssertionError(f"{tag} cross-check beyond {tol}: {r}")
+    res["cross_check"] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def check_q5_under_tf32(dev, store):
+    """Q5 over one batch with TF32 on, as the training phases run:
+    ``nearby_facility_counts`` (every column) equal to the CPU's, and
+    the card's d2 of the batch against the facilities (the cross term
+    without cuBLAS) against the CPU's, bit for bit or not."""
+    from repro_torch.core import ComputingRunner, ComputingSpec
+    from repro_torch.core.enrich import ops
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.core.records import SyntheticTweets, parse_json_lines
+    batch = parse_json_lines(SyntheticTweets(seed=SEED_STREAM).raw_lines(
+        BATCH))
+    assert torch.backends.cuda.matmul.allow_tf32
+    got = ComputingRunner(ComputingSpec(Q.Q5, BATCH), store,
+                          device=dev).run(dict(batch))
+    want = ComputingRunner(ComputingSpec(Q.Q5, BATCH), store,
+                           device="cpu").run(dict(batch))
+    for key in want:
+        if not np.array_equal(np.asarray(got[key]), np.asarray(want[key])):
+            raise AssertionError(f"Q5 under TF32: {key} differs from the "
+                                 "CPU's")
+    a = store["facilities"].snapshot().arrays
+    pts = torch.from_numpy(np.stack([batch["lat"], batch["lon"]], 1)[:512])
+    refs = torch.from_numpy(np.stack([a["lat"], a["lon"]], 1))
+    d_card = ops.pairwise_dist2(pts.to(dev), refs.to(dev)).cpu()
+    d_cpu = ops.pairwise_dist2(pts, refs)
+    res = {"rows": int(np.asarray(want["nearby_facility_counts"]).shape[0]),
+           "counts_equal": True,
+           "d2_bit_equal_share": float((d_card == d_cpu).float().mean()),
+           "d2_max_abs_diff": float((d_card - d_cpu).abs().max())}
+    log(f"Q5 with TF32 on: {res['rows']} rows, every column equal to the "
+        f"CPU's; d2 of 512 tweets x {refs.shape[0]:,} facilities bit-equal "
+        f"to the CPU's in a share of {res['d2_bit_equal_share']:.6f} (max "
+        f"|d| {res['d2_max_abs_diff']:.3g})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the distributed modules on the card at world size 1
+# ---------------------------------------------------------------------------
+
+MOE_EP_TOL = {"rtol": 2e-4, "atol": 2e-5}    # tests/test_moe_ep.py's
+MOE_EP_LOSS_RTOL = 1e-4
+
+
+def distributed_phase(dev, out_dir):
+    """Phase 16: an NCCL group of one rank (a file store: no port), a
+    (1, 1) mesh, and on it moe_ffn_ep against moe_ffn at olmoe's full
+    width (capacity 8.0: no pair drops), a 2-layer olmoe's loss with
+    moe_ep on and off, one Trainer step with moe_ep at the config's
+    capacity, psum_compressed against decompress(compress(g)), and a save
+    -> restore(shardings=remesh_shardings(...)) round trip, bit-equal."""
+    import torch.distributed as dist
+    from repro_torch.ckpt import restore, save
+    from repro_torch.models import api
+    from repro_torch.models import moe as M
+    from repro_torch.models import moe_ep as MEP
+    from repro_torch.models.params import init_tree, tree_flatten
+    from repro_torch.models.sharding import sharding_ctx
+    from repro_torch.runtime.elastic import build_mesh, remesh_shardings
+    from repro_torch.train import OptConfig
+    from repro_torch.train import compression as C
+    from repro_torch.train.steps import (global_state, train_layout_axes,
+                                         train_rules, train_state_shapes)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    root = os.path.abspath(os.path.join(out_dir, "distributed"))
+    os.makedirs(root, exist_ok=True)
+    store_path = os.path.join(root, "pg")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    res = {}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store_path}", rank=0,
+                            world_size=1)
+    try:
+        mesh = build_mesh(model_parallel=1, device=dev)
+        # (a) the EP layer against moe_ffn, float32 (both route on the
+        # same float32 logits)
+        cfg = family_train_cfg("moe").replace(
+            capacity_factor=8.0, dtype="float32", moe_ep=True)
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        p = init_tree(M.moe_specs(cfg), gen, "float32")
+        x = torch.randn((2, 1024, cfg.d_model), generator=gen,
+                        device=dev) * 0.3
+        y0, a0 = M.moe_ffn(cfg, p, x)
+        with sharding_ctx(mesh):
+            y1, a1 = MEP.moe_ffn_ep(cfg, p, x)
+        err = float((y1 - y0).abs().max())
+        ok = bool(torch.allclose(y1, y0, **MOE_EP_TOL))
+        res["moe_ffn_ep"] = {"max_abs_err": err, "y_scale": float(
+            y0.abs().max()), "aux": float(a1), "aux_moe_ffn": float(a0),
+            "tol": MOE_EP_TOL, "shape": list(x.shape)}
+        log(f"distributed: moe_ffn_ep vs moe_ffn at olmoe's width "
+            f"({cfg.num_experts} experts, {cfg.experts_per_token} a token, "
+            f"capacity 8.0, x {tuple(x.shape)} float32): max |d y| {err:.3g}"
+            f" of max |y| {res['moe_ffn_ep']['y_scale']:.3g}; aux "
+            f"{float(a1):.6f} vs {float(a0):.6f}")
+        if not ok or not abs(float(a1) - float(a0)) <= 1e-5 * float(a0):
+            raise AssertionError(f"moe_ffn_ep differs from moe_ffn: "
+                                 f"{res['moe_ffn_ep']}")
+        del p, x, y0, y1
+        # (b) a 2-layer olmoe's loss, moe_ep on and off
+        cfg2 = family_train_cfg("moe", 2).replace(
+            capacity_factor=8.0, dtype="float32", moe_ep=True)
+        params = api.init_params(cfg2, torch.Generator(
+            device=dev).manual_seed(SERVE_SEED))
+        row = packed_row(512, seed=3, vocab=cfg2.vocab_size)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in row.items()}
+        with torch.no_grad(), sharding_ctx(mesh):
+            l_ep, _ = api.loss(cfg2, params, batch)
+        with torch.no_grad():
+            l_ref, _ = api.loss(cfg2.replace(moe_ep=False), params, batch)
+        rel = abs(float(l_ep) - float(l_ref)) / abs(float(l_ref))
+        res["loss_2_layers"] = {"moe_ep": float(l_ep),
+                                "moe_ffn": float(l_ref), "rel": rel,
+                                "rtol": MOE_EP_LOSS_RTOL}
+        log(f"distributed: 2-layer olmoe loss with moe_ep {float(l_ep):.6f}"
+            f", without {float(l_ref):.6f} (rel {rel:.3g}, rtol "
+            f"{MOE_EP_LOSS_RTOL})")
+        if not rel <= MOE_EP_LOSS_RTOL:
+            raise AssertionError("the moe_ep loss differs")
+        del params
+        # (c) one Trainer step on the mesh, moe_ep at the config's capacity
+        cfg3 = family_train_cfg("moe", 2).replace(moe_ep=True)
+        opt = OptConfig(lr=FAMILY_TRAIN_LR, warmup_steps=0, total_steps=1)
+        trainer = Trainer(cfg3, opt, TrainerConfig(steps=1, log_every=1,
+                                                   seed=TRAIN_SEED),
+                          device=dev, mesh=mesh)
+        b2 = packed_row(4096, seed=4, vocab=cfg3.vocab_size)
+        t0 = time.perf_counter()
+        hist = trainer.run(iter([{k: np.concatenate([v, v]) for k, v in
+                                  b2.items()}]))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        if int(trainer.state["step"]) != 1 or not np.isfinite(
+                [hist[-1]["loss"], hist[-1]["grad_norm"]]).all():
+            raise AssertionError(f"the moe_ep Trainer step: {hist}")
+        res["trainer_step"] = {"loss": hist[-1]["loss"],
+                               "grad_norm": hist[-1]["grad_norm"],
+                               "seconds": step_s,
+                               "capacity_factor": cfg3.capacity_factor}
+        log(f"distributed: one Trainer step on the (1, 1) mesh, 2-layer "
+            f"olmoe with moe_ep at capacity {cfg3.capacity_factor}, 2 x "
+            f"4,096 tokens: loss {hist[-1]['loss']:.4f}, grad_norm "
+            f"{hist[-1]['grad_norm']:.4f}, {step_s:.2f} s")
+        # (d) psum_compressed at world size 1 is decompress(compress(g))
+        g = {"a": torch.randn(3, 1000, generator=gen, device=dev),
+             "b": torch.randn(17, 5, generator=gen, device=dev)}
+        e = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3
+             for k, v in g.items()}
+        mean, err1 = C.psum_compressed(g, e)
+        comp, err2 = C.compress_tree(g, e)
+        deq = C.decompress_tree(comp, g)
+        same = all(torch.equal(mean[k], deq[k]) and torch.equal(err1[k],
+                                                                err2[k])
+                   for k in g)
+        res["psum_compressed_bit_equal"] = same
+        log(f"distributed: psum_compressed over 1 rank equals "
+            f"decompress(compress(g)) and its error bit for bit: {same}")
+        if not same:
+            raise AssertionError("psum_compressed at world size 1")
+        # (e) save the trainer's state from the mesh, restore it onto a
+        # new (1, 1) mesh's placements
+        shards = trainer.step_fn.shardings
+        ck = os.path.join(root, "ckpt")
+        save(ck, 1, global_state(trainer.state, shards))
+        new_mesh = build_mesh(model_parallel=1, device=dev)
+        plan = remesh_shardings(train_state_shapes(cfg3, opt),
+                                train_layout_axes(cfg3, opt), new_mesh,
+                                train_rules(cfg3))
+        back = restore(ck, train_state_shapes(cfg3, opt), shardings=plan)
+        pairs = list(zip(tree_flatten(back)[0],
+                         tree_flatten(trainer.state)[0]))
+        equal = all(torch.equal(b.to_local(), s) for b, s in pairs)
+        res["restore_bit_equal"] = equal
+        res["restore_leaves"] = len(pairs)
+        log(f"distributed: save -> restore(shardings=remesh_shardings(...)) "
+            f"of {len(pairs)} leaves onto a new (1, 1) mesh: bit-equal "
+            f"{equal}")
+        if not equal:
+            raise AssertionError("the remesh round trip is not bit-equal")
+        del trainer, back
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -3110,6 +3664,28 @@ def main() -> int:
     families, fam_counts = {}, {}
     for fam in FAMILY_SERVE:
         families[fam], fam_counts[fam] = family_phase(fam, dev)
+    # phase 15, training the moe, ssm, vlm and encdec families, each from
+    # counts and path stats of 0, with TF32 on as phase 9 (after Q5 is
+    # held to the CPU under it), and back off as phase 9 leaves it
+    t15 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    q5_tf32 = check_q5_under_tf32(dev, store)
+    trains, train_counts = {}, {}
+    for fam in FAMILY_TRAIN:
+        trains[fam], train_counts[fam] = family_train(fam, dev, store)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase15_s = time.perf_counter() - t15
+    # phase 16, the distributed modules at world size 1, from counts of 0:
+    # no hand kernel lies on them
+    t16 = time.perf_counter()
+    reset_launch_counts()
+    reset_path_stats()
+    distributed = distributed_phase(dev, out_dir)
+    dist_counts = launch_counts()
+    if any(dist_counts.values()):
+        raise AssertionError(f"the distributed phase launched {dist_counts}")
+    phase16_s = time.perf_counter() - t16
+    log(f"phases 15-16: {phase15_s:.1f} + {phase16_s:.1f} s [{smi}]")
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
@@ -3120,7 +3696,10 @@ def main() -> int:
                    "train": tcounts[names[k["name"]]],
                    "feed_durable": dcounts[names[k["name"]]],
                    **{f"serve_{fam}": c[names[k["name"]]]
-                      for fam, c in fam_counts.items()}}
+                      for fam, c in fam_counts.items()},
+                   **{f"train_{fam}": c[names[k["name"]]]
+                      for fam, c in train_counts.items()},
+                   "train_distributed": dist_counts[names[k["name"]]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3133,7 +3712,9 @@ def main() -> int:
                    "cross_checked_rows": checked,
                    "query_s": q_s, "read_path": read, "serve": serve,
                    "train": train, "families": families,
-                   "durable": durable},
+                   "durable": durable, "train_families": trains,
+                   "q5_tf32": q5_tf32, "distributed": distributed,
+                   "phase_seconds": {"15": phase15_s, "16": phase16_s}},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

@@ -17,9 +17,15 @@ words as ``torch.bfloat16``), so neither side needs ``ml_dtypes``.
 ``repro``'s own ``restore`` cannot cast such a leaf back (ROADMAP Queue
 3); float32 and integer checkpoints cross both ways.
 
-``restore(..., device=)`` takes the place of ``repro``'s ``shardings``:
-the port runs one device.  ``AsyncCheckpointer`` copies the state to
-host memory and writes it on a background thread.
+``restore(..., shardings=)`` is ``repro``'s reshard-on-restore, the
+elastic restart path: each leaf goes onto its ``NamedSharding``'s mesh
+as a DTensor of which every rank holds its own slice, cut from the full
+leaf it read (no collective).  ``restore(..., device=)`` places whole
+leaves on one device.  A state of DTensors is saved as full leaves: every
+rank gathers each leaf (``full_tensor()``), rank 0 writes, and the
+others wait at a barrier until the step is committed.
+``AsyncCheckpointer`` copies the state to host memory and writes it on a
+background thread; on a mesh its ``wait`` holds that barrier.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import os
 import shutil
 import threading
 import zlib
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +48,26 @@ from repro_torch.models.params import (is_bf16_numpy, tensor_to_numpy,
 BF16_DESCR = "<V2"
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _host(x) -> np.ndarray:
+    """A leaf as host numpy; a DTensor is gathered whole first (a
+    collective: every rank of its mesh calls it)."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
     return tensor_to_numpy(x) if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _writes(state: Any) -> Tuple[bool, bool]:
+    """(the state is on a mesh, this process writes it): on a mesh only
+    rank 0 writes."""
+    import torch.distributed as dist
+    meshed = any(_is_dtensor(x) for x in tree_flatten(state)[0])
+    return meshed, not meshed or dist.get_rank() == 0
 
 
 def _write_leaf(path: str, arr: np.ndarray) -> str:
@@ -63,7 +86,23 @@ def _write_leaf(path: str, arr: np.ndarray) -> str:
 
 def save(directory: str, step: int, state: Any, keep: int = 3) -> str:
     """Synchronous checkpoint save with atomic commit. Returns the path.
-    ``state``'s leaves are tensors or numpy arrays."""
+    ``state``'s leaves are tensors, DTensors or numpy arrays; a state on
+    a mesh is gathered on every rank, written by rank 0, and every rank
+    returns once it is committed."""
+    meshed, writer = _writes(state)
+    if meshed:
+        import torch.distributed as dist
+        host = tree_map(_host, state)
+        try:
+            if writer:
+                _save_host(directory, step, host, keep)
+        finally:
+            dist.barrier()
+        return os.path.join(directory, f"step_{step:08d}")
+    return _save_host(directory, step, state, keep)
+
+
+def _save_host(directory: str, step: int, state: Any, keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -125,11 +164,15 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype,
 
 
 def restore(directory: str, like: Any, step: Optional[int] = None,
-            device: DeviceLike = None) -> Any:
+            device: DeviceLike = None, shardings: Optional[Any] = None
+            ) -> Any:
     """Restore into the structure of ``like`` (tensors, ``meta`` tensors
     or TensorSpecs), each leaf in its target's dtype.  Verifies crc32s.
-    Leaves go to ``device``; with None, to their target's device (a
-    ``meta`` tensor or a TensorSpec has none: the card)."""
+    With ``shardings`` (a tree of ``NamedSharding``s of the same
+    structure) every leaf becomes a DTensor on its mesh, this rank
+    holding its slice of it: the elastic restart path.  Otherwise leaves
+    go to ``device``; with None, to their target's device (a ``meta``
+    tensor or a TensorSpec has none: the card)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -144,9 +187,15 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"target structure has {len(leaves_like)}")
     fixed = resolve_device(device) if device is not None else None
+    shard_leaves = (tree_flatten(shardings)[0] if shardings is not None
+                    else [None] * len(leaves_like))
+    if len(shard_leaves) != len(leaves_like):
+        raise ValueError(f"{len(shard_leaves)} shardings for "
+                         f"{len(leaves_like)} leaves")
 
     out = []
-    for i, (meta, tgt) in enumerate(zip(manifest["leaves"], leaves_like)):
+    for i, (meta, tgt, shd) in enumerate(
+            zip(manifest["leaves"], leaves_like, shard_leaves)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         if zlib.crc32(arr.tobytes()) != meta["crc32"]:
             raise IOError(f"checksum mismatch in leaf {i} of {path}")
@@ -154,6 +203,13 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
             raise ValueError(
                 f"leaf {i}: checkpoint shape {arr.shape} != "
                 f"target {tuple(tgt.shape)}")
+        if shd is not None:
+            from torch.distributed.tensor import distribute_tensor
+            full = _to_tensor(arr, tgt.dtype,
+                              resolve_device(shd.mesh.device_type))
+            out.append(distribute_tensor(full, shd.mesh, shd.placements,
+                                         src_data_rank=None))
+            continue
         dev = fixed
         if dev is None:
             on = getattr(tgt, "device", None)
@@ -171,27 +227,39 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
+        self._barrier = False       # a save on a mesh is in flight
         self.saves = 0
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
+        meshed, writer = _writes(state)
         # snapshot to host before returning control to the train loop
+        # (on a mesh, the gathers run here, on every rank)
         host = tree_map(_host, state)
+        self._barrier = meshed
+        self.saves += 1
+        if not writer:
+            return
 
         def run():
             try:
-                save(self.directory, step, host, self.keep)
+                _save_host(self.directory, step, host, self.keep)
             except BaseException as e:
                 self._err = e
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
-        self.saves += 1
 
     def wait(self) -> None:
+        """Until the last save is committed (on a mesh: on every rank,
+        which all call ``wait`` at the same point)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._err is not None:
             err, self._err = self._err, None
             raise err

@@ -180,6 +180,17 @@ def country_keyword_match(text_tokens: Array, country: Array,
                       for s in range(0, max(b, 1), chunk)])
 
 
+def _cross(p: Array, r: Array) -> Array:
+    """p @ r.T for K = 2.  On the card the two products are written out
+    (x·x' rounded, then y·y' added by one fused multiply-add, as the CPU's
+    GEMM adds them): cuBLAS would read the process-wide TF32 flag, and
+    under TF32 the inputs lose 13 bits, which flips hits near r²."""
+    if p.is_cuda:
+        return torch.addcmul(p[:, :1] * r[:, 0][None, :], p[:, 1:],
+                             r[:, 1][None, :])
+    return p @ r.T
+
+
 def pairwise_dist2(points: Array, refs: Array) -> Array:
     """Squared euclidean distance matrix via the |a|^2+|b|^2-2ab identity.
     points: (B, 2); refs: (R, 2) -> (B, R) float32."""
@@ -187,7 +198,7 @@ def pairwise_dist2(points: Array, refs: Array) -> Array:
     r = refs.to(torch.float32)
     d2 = (torch.sum(p * p, dim=1)[:, None]
           + torch.sum(r * r, dim=1)[None, :]
-          - 2.0 * (p @ r.T))
+          - 2.0 * _cross(p, r))
     return torch.clamp(d2, min=0.0)
 
 
@@ -248,7 +259,8 @@ def group_count_within_radius(points: Array, refs: Array, group: Array,
                               chunk: int = _SPATIAL_CHUNK) -> Array:
     """Per probe point: counts of in-radius reference points per group
     (Q5/Q6's 'facilities by type').  Returns (B, num_groups) int32.
-    The hit x one-hot contraction is a dense matrix product."""
+    The hit x one-hot contraction is a dense matrix product of 0s and 1s,
+    exact in TF32 too (every count is below 2^24)."""
     from repro_torch.kernels.spatial_join.ref import radius2
     r2 = radius2(radius)
     onehot = (group[:, None] == torch.arange(

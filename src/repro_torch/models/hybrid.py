@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import moe_ep as MEP
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.params import TensorSpec, torch_dtype, tree_map
@@ -71,7 +72,8 @@ def _period_params(params: Dict, j: int) -> Dict:
 def _ffn(cfg: ModelConfig, i: int, p: Dict, h: Array) -> Tuple[Array, Array]:
     """Sub-layer i's MoE or MLP: (output, aux loss)."""
     if _is_moe(cfg, i):
-        return M.moe_ffn(cfg, p["ffn"], h)
+        ffn = MEP.moe_ffn_ep if cfg.moe_ep else M.moe_ffn
+        return ffn(cfg, p["ffn"], h)
     return (L.mlp(cfg, p["ffn"], h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 

@@ -23,8 +23,8 @@ What decides parity, and how the port keeps it on the card:
     scatter-add, whose updates run in sorted order.  The port does not
     use ``index_add_``, which adds in no fixed order on the card.
 
-Expert parallelism over devices (``cfg.moe_ep``, ``repro.models.moe_ep``)
-waits for ``torch.distributed`` (ROADMAP Queue 1 item 7).
+Expert parallelism over a device mesh (``cfg.moe_ep``) is
+``moe_ep.moe_ffn_ep``, which falls back to ``moe_ffn`` without a mesh.
 """
 
 from __future__ import annotations
@@ -43,15 +43,7 @@ Array = torch.Tensor
 _GLOBAL_ROUTE_MAX_TOKENS = 4096  # decode-sized workloads use the global sort
 
 
-def require_local(cfg: ModelConfig) -> None:
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"{cfg.name}: expert parallelism (moe_ep) needs torch.distributed"
-            ", not ported yet (ROADMAP Queue 1 item 7)")
-
-
 def moe_specs(cfg: ModelConfig) -> Dict:
-    require_local(cfg)
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
         "router": PSpec((d, e), ("embed", "experts"), dtype="float32"),
@@ -143,7 +135,6 @@ def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
 
 def moe_ffn(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array]:
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar)."""
-    require_local(cfg)
     b, s, d = x.shape
     logits = torch.matmul(x.float(), p["router"])
     weights, idx = _route(logits, cfg.experts_per_token)

@@ -1,18 +1,223 @@
-"""Logical-axis sharding, on one device.
+"""Logical-axis sharding rules over ``torch.distributed`` device meshes, a
+port of ``repro.models.sharding``.
 
-``repro`` maps logical axis names to mesh axes and constrains activations
-with ``shard``.  The port runs one card for now, where every constraint
-is the identity; device meshes over ``torch.distributed`` are ROADMAP
-Queue 1 item 7.
+Model code annotates parameters and activations with *logical* axis names
+("embed", "heads", "ffn", "experts", "batch", "kv_seq", ...).  A rules
+table maps logical names to the axes of a ``DeviceMesh``
+(``mesh_dim_names``).  ``spec_for`` gives, per tensor dimension, the mesh
+axis (or tuple of axes) that shards it, as ``repro``'s ``PartitionSpec``
+holds them (trailing ``None``s dropped), so the two compare directly;
+``placements`` turns that spec into DTensor placements, one per mesh
+dimension.
+
+Divisibility fallback: a dimension not divisible by its mesh axes' size
+is replicated instead, and the fallback is recorded
+(``recorded_fallbacks``).  A mesh axis shards at most one dimension of a
+tensor.
+
+``shard`` is the identity on a plain tensor (``repro``'s behaviour
+without a mesh) and redistributes a DTensor to the spec's placements
+(``with_sharding_constraint``'s counterpart).  The port's model code
+computes on plain local tensors, so on its paths ``shard`` stays the
+identity; expert parallelism is explicit (``models/moe_ep.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import (Any, Dict, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
+Axis = Union[None, str, Tuple[str, ...]]
+Rules = Dict[str, Axis]
+Spec = Tuple[Axis, ...]
+
+# repro's production rules: DP over pod+data, FSDP(param) over data,
+# TP/EP over model
+DEFAULT_RULES: Rules = {
+    "batch": ("pod", "data"),
+    "seq": None,             # residual-stream sequence dim (SP shards this)
+    "act_seq": None,         # sequence dim INSIDE attention/MLP
+    "logits_seq": None,      # sequence dim of logits (vocab TP has priority)
+    "kv_seq": None,          # long-context decode overrides this to "data"
+    "embed": "data",         # FSDP axis for parameters
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": None,
+    "head_dim": None,
+    "ffn": "model",
+    "experts": "model",
+    "expert_cap": None,
+    "state": None,           # SSM state dim
+    "ssm_heads": "model",
+    "inner": "model",        # mamba d_inner
+    "conv": None,
+    "layers": None,
+    "periods": None,
+    "frames": None,
+    "stack": None,
+}
+
+LONG_CONTEXT_OVERRIDES: Rules = {
+    "kv_seq": "data",        # sequence-parallel KV cache / scan chunks
+    "batch": "pod",
+}
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: Rules = dict(DEFAULT_RULES)
+        self.fallbacks: list = []
+
+
+_ctx = _Ctx()
+
+
+@contextlib.contextmanager
+def sharding_ctx(mesh, rules: Optional[Rules] = None):
+    """Activate a mesh (a ``DeviceMesh`` with named dimensions, or None)
+    and logical rules for this thread."""
+    prev = (_ctx.mesh, _ctx.rules, _ctx.fallbacks)
+    _ctx.mesh = mesh
+    _ctx.rules = dict(DEFAULT_RULES)
+    if rules:
+        _ctx.rules.update(rules)
+    _ctx.fallbacks = []
+    try:
+        yield _ctx
+    finally:
+        _ctx.mesh, _ctx.rules, _ctx.fallbacks = prev
+
+
+def current_mesh():
+    return _ctx.mesh
+
+
+def recorded_fallbacks() -> list:
+    return list(_ctx.fallbacks)
+
+
+def bound_to_ctx(fn):
+    """``fn`` run under this thread's mesh and rules wherever it is
+    called: a checkpointed layer's backward recompute runs on autograd's
+    thread (the card's worker thread), outside the caller's context."""
+    mesh, rules = _ctx.mesh, dict(_ctx.rules)
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with sharding_ctx(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh, in its dimension order."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _flat(axis: Axis) -> Tuple[str, ...]:
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _axis_size(shape: Dict[str, int], axis: Axis) -> int:
+    n = 1
+    for a in _flat(axis):
+        n *= shape.get(a, 1)
+    return n
+
+
+def _present(shape: Dict[str, int], axis: Axis) -> Axis:
+    """Drop mesh axes that do not exist on this mesh (e.g. 'pod')."""
+    kept = tuple(a for a in _flat(axis) if a in shape)
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
+             mesh=None, rules: Optional[Rules] = None) -> Spec:
+    """The mesh axis of each dimension of ``shape`` from its logical name,
+    with the divisibility fallback; ``logical`` may be shorter than the
+    rank (trailing dims replicate).  () without a mesh."""
+    mesh = mesh if mesh is not None else _ctx.mesh
+    rules = rules or _ctx.rules
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    parts = []
+    used: set = set()
+    for i, dim in enumerate(shape):
+        name = logical[i] if i < len(logical) else None
+        axis = _present(sizes, rules.get(name)) if name else None
+        # a mesh axis may shard at most one dimension
+        if axis is not None and any(a in used for a in _flat(axis)):
+            axis = None
+        if axis is not None and dim % _axis_size(sizes, axis) != 0:
+            _ctx.fallbacks.append((tuple(shape), tuple(logical), name, axis))
+            axis = None
+        used.update(_flat(axis))
+        parts.append(axis)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: per mesh dimension,
+    ``Shard(d)`` for the tensor dimension it shards, else ``Replicate()``.
+    A dimension sharded over a tuple of axes is split by them in order,
+    the first the outermost, as a ``PartitionSpec`` splits it."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, axis in enumerate(spec) if name in _flat(axis)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """Where a leaf lives: its mesh, its spec and the spec's placements."""
+    mesh: Any
+    spec: Spec
+    placements: tuple
+
+
+def named_sharding(mesh, spec: Spec) -> NamedSharding:
+    return NamedSharding(mesh, spec, placements(spec, mesh))
+
 
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """The identity on one device (``repro``'s no-mesh behaviour)."""
-    return x
+    """A logical sharding constraint on an activation: the identity on a
+    plain tensor or without a mesh; a DTensor is redistributed to the
+    spec's placements."""
+    if _ctx.mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = spec_for(x.shape, logical)
+    return x.redistribute(_ctx.mesh, placements(spec, _ctx.mesh))
+
+
+def tree_shardings(tree_shapes: Any, tree_logical: Any, mesh=None,
+                   rules: Optional[Rules] = None) -> Any:
+    """A ``NamedSharding`` for each leaf of a tree of shaped leaves
+    (tensors, ``meta`` tensors, ``TensorSpec``s) given the matching tree
+    of logical-axis tuples."""
+    mesh = mesh if mesh is not None else _ctx.mesh
+    rules = rules or _ctx.rules
+
+    def walk(shapes, logical):
+        if isinstance(shapes, dict):
+            return {k: walk(v, logical[k]) for k, v in shapes.items()}
+        return named_sharding(
+            mesh, spec_for(tuple(shapes.shape), logical, mesh, rules))
+
+    return walk(tree_shapes, tree_logical)

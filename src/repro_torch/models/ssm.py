@@ -8,10 +8,11 @@ scans.  Decode is the O(1) recurrent step on the same state.
 What is copied on purpose, because it decides the numbers:
   * the chunk is ``min(ssm_chunk, S)`` and S must be a multiple of it
     (``repro`` asserts; nothing is padded);
-  * the intra-chunk decay is ``where(tri, exp(diff), 0)`` in float32.
-    Above the diagonal ``diff`` is positive and ``exp`` may overflow to
-    inf there; the ``where`` selects 0, so the forward is exact (its
-    gradient would be 0 · inf: ROADMAP Queue 3);
+  * the intra-chunk decay is ``repro``'s ``where(tri, exp(diff), 0)``
+    in float32, computed as ``exp(where(tri, diff, -inf))``: the same
+    values, and a finite gradient where ``repro``'s is 0 · inf = NaN
+    (above the diagonal ``diff`` overflows ``exp`` at mamba2's chunk of
+    256; ROADMAP Queue 3);
   * the causal conv adds one tap at a time in the activation dtype,
     rounding after each (it is not ``conv1d``, which sums in float32);
   * the D skip is added in the activation dtype in prefill and in
@@ -70,6 +71,15 @@ def _proj_in(cfg: ModelConfig, p: Dict, x: Array):
                  for n in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
 
 
+def _decay(diff: Array, tri: Array) -> Array:
+    """exp(diff) where ``tri``, else 0.  The mask goes in before the exp
+    (``repro`` masks after it): above the diagonal ``diff`` overflows exp
+    to inf at long chunks, and the backward of a mask after it gives
+    0 * inf = NaN.  exp(-inf) = 0, so the values are ``repro``'s form's
+    bit for bit."""
+    return torch.exp(torch.where(tri, diff, float("-inf")))
+
+
 def ssd_chunked(cfg: ModelConfig, xh: Array, dt: Array, b: Array, c: Array,
                 a_log: Array, init_state: Array = None
                 ) -> Tuple[Array, Array]:
@@ -93,7 +103,7 @@ def ssd_chunked(cfg: ModelConfig, xh: Array, dt: Array, b: Array, c: Array,
     # L[i,j] = exp(cum_i - cum_j) for i >= j else 0
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,NC,Q,Q,H)
     tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    l_mat = _decay(diff, tri[None, None, :, :, None])
     g_mat = torch.einsum("bcqn,bckn->bcqk", c_c, b_c)     # (B,NC,Q,Q)
     m_mat = g_mat[..., None] * l_mat                      # (B,NC,Q,Q,H)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", m_mat, xdt_c)

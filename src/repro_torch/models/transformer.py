@@ -11,8 +11,8 @@ training loss never materialises (B, S, V) logits: ``chunked_xent``
 recomputes each chunk's in backward.
 
 The moe family puts ``moe.moe_ffn`` in place of the MLP when
-``moe_period`` is 1 (``repro``'s rule) and returns the layers' mean
-auxiliary loss.  The vlm family prepends ``num_frontend_tokens``
+``moe_period`` is 1 (``repro``'s rule), ``moe_ep.moe_ffn_ep`` with
+``cfg.moe_ep``, and returns the layers' mean auxiliary loss.  The vlm family prepends ``num_frontend_tokens``
 precomputed patch embeddings (zeros when none are given, as in
 ``repro``): they take the first positions, and their rows are trimmed
 after the final norm.
@@ -30,9 +30,10 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import moe_ep as MEP
 from repro_torch.models.params import (PSpec, TensorSpec, torch_dtype,
                                        tree_map)
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import bound_to_ctx, shard
 
 Array = torch.Tensor
 
@@ -61,7 +62,9 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 def remat_wrap(cfg: ModelConfig, fn):
     """``fn`` under the config's rematerialisation policy.  Without grad
-    mode there is nothing to save and ``fn`` runs as it is."""
+    mode there is nothing to save and ``fn`` runs as it is.  A
+    checkpointed ``fn`` keeps the sharding context it was wrapped in, for
+    its recompute too (``moe_ep`` reads the mesh there)."""
     if cfg.remat == "none":
         return fn
     kw = {}
@@ -74,7 +77,7 @@ def remat_wrap(cfg: ModelConfig, fn):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(bound_to_ctx(fn), *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
     return wrapped
 
@@ -114,9 +117,11 @@ def specs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _ffn(cfg: ModelConfig, p: Dict, h: Array) -> Tuple[Array, Array]:
-    """The layer's MoE or MLP: (output, aux loss)."""
+    """The layer's MoE (expert-parallel with ``moe_ep``) or MLP:
+    (output, aux loss)."""
     if "moe" in p:
-        return M.moe_ffn(cfg, p["moe"], h)
+        ffn = MEP.moe_ffn_ep if cfg.moe_ep else M.moe_ffn
+        return ffn(cfg, p["moe"], h)
     return (L.mlp(cfg, p["mlp"], h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 

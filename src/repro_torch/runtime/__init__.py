@@ -1,4 +1,4 @@
-"""Runtime primitives.  ``retry`` is a copy of ``repro.runtime.fault``'s;
-``repro.runtime.elastic`` builds JAX meshes and waits for the port's
-``torch.distributed`` meshes (ROADMAP Queue 1 item 7)."""
+"""Runtime primitives, as ``repro.runtime``: ``retry`` (``fault``) and
+the elastic remesh plan (``elastic``)."""
+from repro_torch.runtime.elastic import remesh_shardings  # noqa: F401
 from repro_torch.runtime.fault import retry  # noqa: F401

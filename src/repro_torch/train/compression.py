@@ -6,8 +6,8 @@ next step's gradient (EF-SGD).  Rounding is half to even, as
 ``jnp.round``'s, so the int8 values and scales equal ``repro``'s.
 
 Pure functions over nested dicts whose compressed leaves are (q, scale)
-tuples.  ``repro``'s ``psum_compressed`` needs a collective and waits for
-the port's ``torch.distributed`` meshes (ROADMAP Queue 1 item 7).
+tuples, and ``psum_compressed``, the data-parallel mean over a
+``torch.distributed`` process group that moves the int8 payloads.
 """
 
 from __future__ import annotations
@@ -72,3 +72,32 @@ def decompress_tree(comp: Any, like: Any) -> Any:
 def init_error(params: Any) -> Any:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def psum_compressed(grads: Any, error: Any, group=None) -> Tuple[Any, Any]:
+    """Error-feedback compressed data-parallel mean over ``group`` (None:
+    the default group): quantize locally, ``all_gather`` the int8
+    payloads and the float32 scales (+1.5 %), dequantize and take the
+    mean in float32, summed in rank order.  Every rank gets the exact
+    mean of the ranks' *dequantized* gradients; the new error is the
+    local residual."""
+    import torch.distributed as dist
+    comp, new_err = compress_tree(grads, error)
+    n = dist.get_world_size(group)
+
+    def gather(x):
+        out = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(out, x.contiguous(), group=group)
+        return torch.stack(out)
+
+    def reduce_one(c, g):
+        q, s = c
+        per = gather(q).float() * gather(s)[:, :, None]
+        mean = torch.sum(per, dim=0) / n
+        return mean.reshape(-1)[:g.numel()].reshape(g.shape)
+
+    flat_c = tree_flatten(comp)[0]
+    flat_g, struct = tree_flatten(grads)
+    return (tree_unflatten(struct, [reduce_one(c, g)
+                                    for c, g in zip(flat_c, flat_g)]),
+            new_err)

@@ -10,6 +10,12 @@
     (``step_times``; CUDA events on the card).
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``.
+With ``mesh`` (one process a rank; ``runtime.elastic.build_mesh``) every
+rank runs the same loop over the same global batches: the state holds
+this rank's slices (``steps.local_state``), checkpoints hold whole
+leaves (gathered, written by rank 0) and restore onto the mesh's
+placements.  A step that fails on one rank only is not recovered across
+the mesh: the others wait in its collectives.
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import tree_map
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import init_train_state, make_train_step
+from repro_torch.train.steps import (global_state, init_train_state,
+                                     local_state, make_train_step,
+                                     train_state_shapes)
 
 log = logging.getLogger(__name__)
 
@@ -69,12 +78,15 @@ class _Clock:
 
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptConfig,
-                 tcfg: TrainerConfig, device: DeviceLike = None):
+                 tcfg: TrainerConfig, device: DeviceLike = None,
+                 mesh=None):
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(model_cfg, opt_cfg, tcfg.microbatches)
+        self.mesh = mesh
+        self.step_fn = make_train_step(model_cfg, opt_cfg, tcfg.microbatches,
+                                       mesh)
         self.state = self._init_state()
         self.ckpt = (AsyncCheckpointer(tcfg.ckpt_dir, tcfg.ckpt_keep)
                      if tcfg.ckpt_dir else None)
@@ -85,18 +97,32 @@ class Trainer:
             self._restore()
 
     def _init_state(self):
+        """The seed's whole state (the same on every rank), cut to this
+        rank's slices on a mesh."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        return init_train_state(self.model_cfg, self.opt_cfg, gen)
+        state = init_train_state(self.model_cfg, self.opt_cfg, gen)
+        if self.mesh is not None:
+            state = local_state(state, self.step_fn.shardings)
+        return state
 
     # ----------------------------------------------------------------- ckpt
     def _save(self, step: int) -> None:
         if self.ckpt is not None:
-            self.ckpt.save(step, self.state)
+            state = self.state if self.mesh is None else global_state(
+                self.state, self.step_fn.shardings)
+            self.ckpt.save(step, state)
 
     def _restore(self) -> None:
         step = latest_step(self.tcfg.ckpt_dir)
         log.warning("restoring from checkpoint step %s", step)
-        self.state = restore(self.tcfg.ckpt_dir, self.state, step)
+        if self.mesh is None:
+            self.state = restore(self.tcfg.ckpt_dir, self.state, step)
+            return
+        whole = train_state_shapes(self.model_cfg, self.opt_cfg)
+        self.state = tree_map(
+            lambda x: x.to_local(),
+            restore(self.tcfg.ckpt_dir, whole, step,
+                    shardings=self.step_fn.shardings))
 
     # ------------------------------------------------------------------ run
     def _step(self, batch: Dict, wait_s: float) -> Dict:

@@ -822,6 +822,35 @@ def test_workload_udf_on_card_equals_cpu_at_scale_1(card, tables_1x, udf):
         assert got["safety_check_flag"].any()
 
 
+def test_q5_counts_equal_cpu_with_tf32_on(card, tables_1x):
+    """Q5 with the process-wide TF32 flag on (as the trainer sets it):
+    its facility counts decide ``d2 <= r2`` on |a|^2 + |b|^2 - 2ab, whose
+    cross term the card computes without cuBLAS, so the flag cannot
+    round it; every row of ``nearby_facility_counts`` (and every other
+    column) equals the CPU's at one 6,720-tweet batch of the scale-1.0
+    tables."""
+    from repro_torch.core import ComputingRunner, ComputingSpec
+    from repro_torch.core.enrich import queries as Q
+    from repro_torch.core.records import SyntheticTweets, parse_json_lines
+    batch = parse_json_lines(SyntheticTweets(seed=5).raw_lines(6720))
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ComputingRunner(ComputingSpec(Q.Q5, 6720), tables_1x,
+                              device=card).run(dict(batch))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    want = ComputingRunner(ComputingSpec(Q.Q5, 6720), tables_1x,
+                           device="cpu").run(dict(batch))
+    assert got["nearby_facility_counts"].shape[0] == 6720
+    assert np.asarray(want["nearby_facility_counts"]).any()
+    assert set(got) == set(want)
+    for key in want:
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        assert g.dtype == w.dtype and g.shape == w.shape, key
+        np.testing.assert_array_equal(g, w, err_msg=key)
+
+
 def copy_crash_image(src, dst):
     """Copy a live durable dir in crash-causal order: checkpoints, then
     store manifests, then data files (WAL and npz segments), so metadata

@@ -190,7 +190,9 @@ def test_port_import_leaves_jax_and_repro_out():
             "repro_torch.train, repro_torch.train.data_feed, "
             "repro_torch.train.trainer, repro_torch.train.compression, "
             "repro_torch.ckpt, repro_torch.data.packing, "
-            "repro_torch.runtime, repro_torch.launch.train;"
+            "repro_torch.runtime, repro_torch.launch.train, "
+            "repro_torch.models.moe_ep, repro_torch.models.sharding, "
+            "repro_torch.runtime.elastic;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')];"

@@ -212,15 +212,26 @@ def test_cache_specs_match():
         assert str(ts[key].dtype) == f"torch.{js[key].dtype}"
 
 
-# expert parallelism (moe_ep) in the moe and hybrid families waits for
-# ROADMAP Queue 1 item 7; the moe, vlm, ssm, hybrid and encdec families
-# themselves are held to repro in test_torch_families.py
+# expert parallelism (moe_ep) in the moe and hybrid families is ported
+# (models/moe_ep.py, held to repro over gloo ranks in
+# test_torch_distributed.py): a moe_ep config has the same parameters as
+# repro's, and without a mesh it computes moe_ffn's numbers; the moe, vlm,
+# ssm, hybrid and encdec families themselves are held to repro in
+# test_torch_families.py
 @pytest.mark.parametrize("arch,moe_ep", [("olmoe-1b-7b", True),
                                          ("jamba-1.5-large-398b", True)])
 def test_other_families_are_not_ported_yet(arch, moe_ep):
     cfg = t_smoke_config(arch).replace(moe_ep=moe_ep)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.param_specs(cfg)
+    jcfg = j_smoke_config(arch).replace(moe_ep=moe_ep)
+    specs = tapi.param_specs(cfg)
+    assert specs == tapi.param_specs(cfg.replace(moe_ep=False))
+    assert tapi.param_count(cfg) == japi.param_count(jcfg)
+    params = tapi.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.randint(16, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(1))
+    got = tapi.apply(cfg, params, {"tokens": tok})
+    want = tapi.apply(cfg.replace(moe_ep=False), params, {"tokens": tok})
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_gelu_mlp_and_cross_attention_match():
