@@ -130,12 +130,29 @@ Phases, each fatal on failure:
      psum_compressed against decompress(compress(g)), and a checkpoint
      of the mesh's state restored onto a new mesh's placements,
      bit-equal.
-Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16) runs with
-the launch counts set to 0 just before it and read just after; the
+ 17. the launch tooling (repro_torch.launch.dryrun, opcost, roofline,
+     report) held to the card.  Three dry runs trace one after another,
+     each in a child interpreter over its own fake process group with
+     meta shards on the card's device type: phase 9's training cell and
+     phase 8's dense prefill (one row of 1,536 tokens) at 1 x 1, and
+     mamba2-130m x decode_32k at 256 ranks.
+     (a) phase 9's step run for real (seeded state and tokens, TF32 on):
+     the bytes of its state and batch equal the dry run's argument bytes
+     and the FLOPs opcost counts on the card equal the dry run's, by
+     operand type, exactly; the peak bytes (max_memory_allocated above
+     what was allocated before the state) within LAUNCH_MEM_BAND of the
+     dry run's argument + temporary + output bytes; the roofline seconds
+     beside the measured step; (b) the prefill run for real: argument
+     bytes equal, its flash launches equal the dry run's flash sites (one
+     a layer), and its FLOPs the dry run's less the plain flash
+     version's at each site; (c) the 256-rank cell's row through
+     report.fmt_row, its useful_ratio within LAUNCH_USEFUL_BAND.
+Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17) runs
+with the launch counts set to 0 just before it and read just after; the
 kernels line gives each kernel's launches on the paths (feed, read_path,
 serve, train, feed_durable, serve_moe, serve_ssm, serve_vlm,
 serve_encdec, train_moe, train_ssm, train_vlm, train_encdec,
-train_distributed) and their sum.
+train_distributed, launch) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -159,10 +176,15 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if os.path.join(ROOT, "src") not in sys.path:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.launch.mesh import H100  # noqa: E402  (the checkout's)
 
-# H100 SXM published peaks (NVIDIA data sheet): memory and float32 rates
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
+# H100 SXM published peaks (NVIDIA data sheet), from the port's one
+# hardware model: memory, float32 and dense bf16 tensor-core rates
+PEAK_BYTES_S = H100.hbm_bw
+PEAK_F32_S = H100.peak_f32_flops
+PEAK_BF16_S = H100.peak_flops
 
 BATCH = 6720                 # fig25's 16X batch
 FRAMES = 20
@@ -841,7 +863,6 @@ FLASH_CASES = [
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # timed: the serving path's prefill, and a longer causal prompt
 FLASH_TIMED = [(1, 1536, 56, 8, 128), (1, 4096, 56, 8, 128)]
-PEAK_BF16_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 # whisper-medium's attentions (phase 13), all non-causal bf16 at G = 1,
 # D = 64: (name, B, S, T, H, Kv, D)
 FLASH_WHISPER = [("encoder", 1, 1536, 1536, 16, 16, 64),
@@ -3464,6 +3485,282 @@ def distributed_phase(dev, out_dir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch tooling's dry run, held to the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_PREFILL = 1536          # phase 8's longest prompt, one row
+LAUNCH_TIMED = 3
+# measured peak bytes of phase 9's step (torch.cuda.max_memory_allocated
+# above what was allocated before its state) / the dry run's predicted
+# argument + temporary + output bytes.  This phase's first run read 1.0014
+# (45.347 against 45.282 GiB; torch 2.11.0+cu128, NVIDIA H100 80GB HBM3,
+# 700.00 W): the band allows the caching allocator's rounding and
+# workspaces, and fails a prediction off by 3 % or more
+LAUNCH_MEM_BAND = (0.97, 1.03)
+# model FLOPs / (the 256-rank cell's per-device FLOPs x 256).  Ideal
+# sharding gives ~1 (repro's XLA program: 0.927); at worst every rank of
+# the 16-wide "model" axis repeats the same product (1/16), and 10 % more
+# for work outside model_flops (the SSD state update).  A count taken
+# above DTensor (the global program on each rank, 1/256) or one that
+# misses matmuls falls outside
+LAUNCH_USEFUL_BAND = (1 / (16 * 1.1), 1.1)
+LAUNCH_CHILD_TIMEOUT = 600
+
+
+def phase9_opt():
+    from repro_torch.train import OptConfig
+    return OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARM,
+                     total_steps=TRAIN_WARM + TRAIN_TIMED)
+
+
+def dryrun_cells() -> dict:
+    """Phase 17's dry-run cells: phase 9's training cell and phase 8's
+    dense prefill at 1 x 1 on the card's device type, and a production
+    cell of 256 fake ranks."""
+    from repro_torch.configs.base import ShapeSpec
+    cut = {"num_layers": TRAIN_LAYERS}
+    return {
+        "train": dict(arch=SERVE_ARCH, shape_name="train_4k",
+                      multi_pod=False, cfg_overrides=cut,
+                      shape=ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"),
+                      mesh_shape=(1, 1), opt=phase9_opt()),
+        "prefill": dict(arch=SERVE_ARCH, shape_name="prefill_32k",
+                        multi_pod=False, cfg_overrides=cut,
+                        shape=ShapeSpec("prefill_32k", LAUNCH_PREFILL, 1,
+                                        "prefill"),
+                        mesh_shape=(1, 1)),
+        "sharded": dict(arch="mamba2-130m", shape_name="decode_32k",
+                        multi_pod=False),
+    }
+
+
+def dryrun_child(name: str, out_dir: str, device: str = "cuda") -> int:
+    """(phase 17) one dry-run cell in this interpreter, its artifact
+    written to out_dir/dryrun_<name>.json."""
+    from repro_torch.launch.dryrun import run_cell
+    # phase 9 runs its float32 products in TF32: the roofline prices them
+    # at TF32's peak
+    torch.backends.cuda.matmul.allow_tf32 = name == "train"
+    res = run_cell(**dryrun_cells()[name], device=device)
+    with open(os.path.join(out_dir, f"dryrun_{name}.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    return 0
+
+
+def run_dryruns(out_dir: str) -> dict:
+    """Phase 17's dry runs, one child interpreter each (a process group
+    is process-wide), one after another; a child that fails, or a cell
+    whose status is not ok, fails the phase."""
+    out = {}
+    for name in dryrun_cells():
+        log_path = os.path.join(out_dir, f"dryrun_{name}.log")
+        with open(log_path, "w") as log_fh:
+            rc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--dryrun-child",
+                 name, "--out", out_dir], stdout=log_fh,
+                stderr=subprocess.STDOUT, cwd=ROOT,
+                timeout=LAUNCH_CHILD_TIMEOUT).returncode
+        path = os.path.join(out_dir, f"dryrun_{name}.json")
+        if rc != 0 or not os.path.exists(path):
+            with open(log_path) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"dry run {name} exited {rc}:\n{tail}")
+        with open(path) as fh:
+            out[name] = json.load(fh)
+        if out[name]["status"] != "ok":
+            raise AssertionError(f"dry run {name}: {out[name]['status']} "
+                                 f"{out[name].get('error', '')[:2000]}")
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.launch.opcost import tensor_bytes
+    from repro_torch.models.params import tree_flatten
+    return sum(tensor_bytes(x) for x in tree_flatten(tree)[0])
+
+
+def launch_train_check(dev, dry) -> dict:
+    """(a) phase 9's training step for real, against its 1 x 1 dry run:
+    the argument bytes and the FLOPs equal, the peak bytes in the band,
+    and the roofline seconds beside the measured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.opcost import OpCounter
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = get_config(SERVE_ARCH).replace(num_layers=TRAIN_LAYERS)
+    opt = phase9_opt()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    state = init_train_state(cfg, opt, g)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=g, device=dev, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    arg_b = tree_bytes(state) + tree_bytes(batch)
+    step = make_train_step(cfg, opt)
+    state, _ = step(state, batch)                  # warm-up
+    torch.cuda.synchronize()
+    with OpCounter(dev.type) as oc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LAUNCH_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_b = dry["arg_bytes_per_dev"]
+    pred = want_b + dry["temp_bytes_per_dev"] + dry["out_bytes_per_dev"]
+    rf = dry["roofline"]
+    roof_s = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
+    res = {"arg_bytes": arg_b, "dry_arg_bytes": want_b,
+           "flops": oc.cost.flops, "dry_flops": rf["flops_per_dev"],
+           "hbm_bytes": oc.cost.hbm_bytes, "dry_hbm_bytes":
+           rf["bytes_per_dev"], "peak_bytes": peak,
+           "predicted_peak_bytes": pred, "peak_ratio": peak / pred,
+           "step_s": statistics.median(times), "step_times_s": times,
+           "roofline": rf, "roofline_s": roof_s, "loss": loss,
+           "dry_trace_s": dry["trace_s"], "dry_ops": dry["ops"],
+           "real_ops": oc.cost.ops,
+           "flops_by_dtype": oc.cost.flops_by_dtype}
+    log(f"launch (a): {SERVE_ARCH} {TRAIN_LAYERS} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, 1 x 1: argument bytes {arg_b:,} (dry run "
+        f"{want_b:,}); FLOPs {oc.cost.flops:.6e} (dry run "
+        f"{rf['flops_per_dev']:.6e}); HBM bytes counted "
+        f"{oc.cost.hbm_bytes:.4e} (dry run {rf['bytes_per_dev']:.4e}); ops "
+        f"{oc.cost.ops} (dry run "
+        f"{dry['ops']}); peak {peak / 2**30:.3f} GiB against predicted "
+        f"{pred / 2**30:.3f} GiB (ratio {peak / pred:.4f}, band "
+        f"{LAUNCH_MEM_BAND}); step {res['step_s']:.4f} s against the "
+        f"roofline's {roof_s:.4f} s (compute {rf['compute_s']:.4f} for "
+        f"FLOPs by type {rf['flops_by_dtype']}, memory "
+        f"{rf['memory_s']:.4f}, {rf['dominant']}) [{nvidia_smi_line()}]")
+    if arg_b != want_b:
+        raise AssertionError(f"argument bytes {arg_b} != the dry run's "
+                             f"{want_b}")
+    if (oc.cost.flops != rf["flops_per_dev"]
+            or oc.cost.flops_by_dtype != rf["flops_by_dtype"]):
+        raise AssertionError(f"FLOPs {oc.cost.flops_by_dtype} != the dry "
+                             f"run's {rf['flops_by_dtype']}")
+    if not LAUNCH_MEM_BAND[0] <= peak / pred <= LAUNCH_MEM_BAND[1]:
+        raise AssertionError(f"peak {peak} / predicted {pred} = "
+                             f"{peak / pred:.4f} outside {LAUNCH_MEM_BAND}")
+    return res
+
+
+def launch_prefill_check(dev, dry) -> dict:
+    """(b) phase 8's dense prefill for real, against its 1 x 1 dry run:
+    the argument bytes equal, the flash launches equal the dry run's
+    flash sites, and the FLOPs the dry run's less the plain flash
+    version's (the kernel's work is no aten op)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.opcost import OpCounter, count
+    from repro_torch.models import api
+    cfg = get_config(SERVE_ARCH).replace(num_layers=TRAIN_LAYERS)
+    params = api.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (1, LAUNCH_PREFILL),
+                           device=dev, dtype=torch.int32)
+    arg_b = tree_bytes(params) + tokens.numel() * tokens.element_size()
+    with torch.no_grad():
+        api.prefill(cfg, params, tokens)           # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with OpCounter(dev.type) as oc:
+            api.prefill(cfg, params, tokens)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        times = []
+        for _ in range(LAUNCH_TIMED):
+            t0 = time.perf_counter()
+            api.prefill(cfg, params, tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def meta(*shape):
+        return torch.empty(*shape, dtype=torch.bfloat16, device="meta")
+    plain = count(fa_ref.flash_attention, meta(1, LAUNCH_PREFILL, h, d),
+                  meta(1, LAUNCH_PREFILL, kv, d),
+                  meta(1, LAUNCH_PREFILL, kv, d), True)[1].flops
+    sites = dry["kernels"].get("flash_attention", 0)
+    rf = dry["roofline"]
+    res = {"arg_bytes": arg_b, "dry_arg_bytes": dry["arg_bytes_per_dev"],
+           "flops": oc.cost.flops, "dry_flops": rf["flops_per_dev"],
+           "plain_flash_flops": plain, "flash_launches":
+           counts["flash_attention"], "dry_flash_sites": sites,
+           "launches": counts, "prefill_s": statistics.median(times),
+           "roofline": rf, "predicted_bytes": dry["arg_bytes_per_dev"]
+           + dry["temp_bytes_per_dev"] + dry["out_bytes_per_dev"]}
+    log(f"launch (b): prefill of {LAUNCH_PREFILL} tokens, {TRAIN_LAYERS} "
+        f"layers, 1 x 1: argument bytes {arg_b:,} (dry run "
+        f"{res['dry_arg_bytes']:,}); flash launches "
+        f"{counts['flash_attention']} (dry-run sites {sites}); FLOPs "
+        f"{oc.cost.flops:.6e} + {sites} x plain flash {plain:.6e} (dry run "
+        f"{rf['flops_per_dev']:.6e}); prefill {res['prefill_s']:.4f} s "
+        f"against the roofline's {max(rf['compute_s'], rf['memory_s']):.4f}"
+        f" s ({rf['dominant']})")
+    others = {k: n for k, n in counts.items() if k != "flash_attention"}
+    if arg_b != res["dry_arg_bytes"]:
+        raise AssertionError(f"prefill argument bytes {arg_b} != the dry "
+                             f"run's {res['dry_arg_bytes']}")
+    if (counts["flash_attention"] != sites or sites != cfg.num_layers
+            or any(others.values())):
+        raise AssertionError(f"prefill launches {counts} against the dry "
+                             f"run's flash sites {sites}")
+    if oc.cost.flops + sites * plain != rf["flops_per_dev"]:
+        raise AssertionError(f"prefill FLOPs {oc.cost.flops} + {sites} x "
+                             f"{plain} != the dry run's "
+                             f"{rf['flops_per_dev']}")
+    return res
+
+
+def launch_phase(dev, out_dir) -> tuple:
+    """Phase 17: the three dry runs, (a) and (b) against their artifacts,
+    then (c) the 256-rank cell's row and its useful share.  Returns
+    (results, the launch counts of (b)'s counted prefill)."""
+    from repro_torch.launch import report
+    t0 = time.perf_counter()
+    dry = run_dryruns(out_dir)
+    dry_s = time.perf_counter() - t0
+    # TF32 on for the training step, as phase 9 runs it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        res = {"train": launch_train_check(dev, dry["train"])}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    res["prefill"] = launch_prefill_check(dev, dry["prefill"])
+    sh = dry["sharded"]
+    log("launch (c): " + report.HEADER.splitlines()[0])
+    log("launch (c): " + report.fmt_row(sh))
+    log(f"launch (c): useful_ratio {sh['useful_ratio']:.4f} (band "
+        f"{LAUNCH_USEFUL_BAND}); heaviest matmuls " + "; ".join(
+            f"{k}: {f:.4g}" for k, f in sh["top_flops"][:4]))
+    if (sh["chips"] != 256 or sh["f64_leaks"] or not
+            LAUNCH_USEFUL_BAND[0] <= sh["useful_ratio"]
+            <= LAUNCH_USEFUL_BAND[1]):
+        raise AssertionError(f"the sharded dry run: {sh}")
+    res["sharded"] = sh
+    res["dry_runs_s"] = dry_s
+    res["dry_runs"] = {k: {kk: v[kk] for kk in ("trace_s", "ops",
+                                                 "kernels", "torch")}
+                       for k, v in dry.items()}
+    return res, res["prefill"]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -3474,6 +3771,8 @@ def main() -> int:
                          "into DIR until killed")
     ap.add_argument("--seed", type=int, default=SEED_CRASH,
                     help="the durable child's stream seed")
+    ap.add_argument("--dryrun-child", metavar="CELL",
+                    help="(phase 17) trace one dry-run cell and exit")
     args = ap.parse_args()
     out_dir = args.out
     if not torch.cuda.is_available():
@@ -3483,6 +3782,8 @@ def main() -> int:
     import repro_torch.core  # noqa: F401  (fails outside a checkout)
     if args.durable_child:
         return durable_child(args.durable_child, args.seed)
+    if args.dryrun_child:
+        return dryrun_child(args.dryrun_child, out_dir)
     from repro_torch.core import RefStore
     from repro_torch.core.enrich import queries as Q
     from repro_torch.kernels import (all_kernels, build_all, launch_counts,
@@ -3686,6 +3987,13 @@ def main() -> int:
         raise AssertionError(f"the distributed phase launched {dist_counts}")
     phase16_s = time.perf_counter() - t16
     log(f"phases 15-16: {phase15_s:.1f} + {phase16_s:.1f} s [{smi}]")
+    # phase 17, the launch tooling's dry runs held to the card, from
+    # counts of 0: the prefill launches flash once a layer
+    t17 = time.perf_counter()
+    reset_launch_counts()
+    launch, launch_counts_17 = launch_phase(dev, out_dir)
+    phase17_s = time.perf_counter() - t17
+    log(f"phase 17: {phase17_s:.1f} s [{smi}]")
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
@@ -3699,7 +4007,8 @@ def main() -> int:
                       for fam, c in fam_counts.items()},
                    **{f"train_{fam}": c[names[k["name"]]]
                       for fam, c in train_counts.items()},
-                   "train_distributed": dist_counts[names[k["name"]]]}
+                   "train_distributed": dist_counts[names[k["name"]]],
+                   "launch": launch_counts_17[names[k["name"]]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3714,7 +4023,9 @@ def main() -> int:
                    "train": train, "families": families,
                    "durable": durable, "train_families": trains,
                    "q5_tf32": q5_tf32, "distributed": distributed,
-                   "phase_seconds": {"15": phase15_s, "16": phase16_s}},
+                   "launch": launch,
+                   "phase_seconds": {"15": phase15_s, "16": phase16_s,
+                                     "17": phase17_s}},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

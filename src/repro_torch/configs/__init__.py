@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeSpec,
     get_config,
     register,
+    shape_applicable,
     smoke_config,
 )
 

@@ -10,7 +10,7 @@ per batch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -109,6 +109,12 @@ class ModelConfig:
             return self.family != "ssm"
         return (i % self.attn_period) == self.attn_offset
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when the arch can serve ``long_500k`` (attention-free or
+        hybrid with O(S) memory growth only on a small fraction of layers)."""
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -183,6 +189,14 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Returns (applicable, reason-if-not). long_500k needs sub-quadratic
+    attention; pure full-attention archs skip it."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "skipped (full-attention arch; long_500k needs sub-quadratic)"
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,13 @@ plain PyTorch version) and ``ops.py`` (routing).
 
 Routing is by device, not by mode: a CUDA tensor goes to the hand kernel,
 which launches or raises; a CPU or ``meta`` tensor goes to the plain
-version.  There is no dispatch-mode switch and no row threshold.
+version.  There is no dispatch-mode switch and no row threshold.  A
+``DTensor`` is routed by its local shard.  A ``FakeTensor`` on "cuda" (or
+a DTensor over one) has no storage to launch on and is routed as ``meta``
+is: the dry run traces the plain version over such stand-ins, and
+records the site (``note_site``).  A DTensor over real CUDA shards takes
+the kernel path, whose operand check refuses it (``check_same_cuda``):
+a hand kernel works on one card's plain tensors.
 
 Beside each kernel's launch counter, ``path_stats`` counts which body ran
 per dispatch: "kernel" (the hand kernel on the card), "reference" (the
@@ -52,9 +58,23 @@ SM_COUNT = 132
 SMEM_BYTES = 232_448
 
 
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+
+
 def on_cuda(t: torch.Tensor) -> bool:
-    """The whole routing rule: CUDA tensors take the hand kernel."""
-    return t.device.type == "cuda"
+    """The whole routing rule: CUDA tensors take the hand kernel.  A
+    ``DTensor`` is routed by its local shard; a ``FakeTensor`` on "cuda"
+    holds no storage and takes the plain version, as ``meta`` does."""
+    if type(t) not in _PLAIN:
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+    if t.device.type != "cuda":
+        return False
+    if type(t) in _PLAIN:
+        return True
+    from torch._subclasses.fake_tensor import FakeTensor
+    return not isinstance(t, FakeTensor)
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,6 +107,11 @@ def _stream(device: torch.device) -> int:
 
 
 def check_same_cuda(*tensors: torch.Tensor) -> torch.device:
+    for t in tensors:
+        if type(t) not in _PLAIN:
+            raise TypeError(f"kernel operands must be plain tensors on one "
+                            f"card, got a {type(t).__name__} (pass a "
+                            f"DTensor's local shard)")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -252,6 +277,26 @@ def path_stats() -> Dict[Tuple[str, str], int]:
 def reset_path_stats() -> None:
     with _path_lock:
         _path_hits.clear()
+
+
+def note_site(kernel: str) -> None:
+    """Count one call of ``kernel``'s routing function (its ``ops.py``) on
+    this thread's site tape, whichever body then runs."""
+    d: Optional[Dict] = getattr(_tls, "sites", None)
+    if d is not None:
+        d[kernel] = d.get(kernel, 0) + 1
+
+
+def site_tape_start() -> None:
+    """Start recording this thread's hand-kernel sites."""
+    _tls.sites = {}
+
+
+def site_tape_stop() -> Dict[str, int]:
+    """Stop this thread's site tape and return {kernel: calls}."""
+    d = getattr(_tls, "sites", None) or {}
+    _tls.sites = None
+    return d
 
 
 def path_tape_start() -> None:

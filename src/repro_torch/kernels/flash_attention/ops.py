@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cuda
+from repro_torch.kernels import note_site, on_cuda
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
@@ -13,6 +13,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, T, Kv, D), H = Kv * G.  Returns
     (B, S, H, D) in q's dtype; causal is top-left (qpos >= kpos)."""
+    note_site("flash_attention")
     if on_cuda(q):
         return kernel.flash_attention(q, k, v, causal)
     return ref.flash_attention(q, k, v, causal)

@@ -317,12 +317,53 @@ def cache_update(k_cache: Array, v_cache: Array, k_new: Array, v_new: Array,
     (B, Smax, Kv, D); new: (B, 1, Kv, D); pos: (B,) int32.  A position
     past the end writes the last slot, as ``dynamic_update_slice``
     clamps its start."""
+    if type(k_cache) not in (torch.Tensor, torch.nn.Parameter):
+        from torch.distributed.tensor import DTensor
+        if isinstance(k_cache, DTensor):
+            _sharded_cache_write(k_cache, k_new, pos)
+            _sharded_cache_write(v_cache, v_new, pos)
+            return k_cache, v_cache
     b, smax = k_cache.shape[:2]
     rows = torch.arange(b, device=k_cache.device)
     at = pos.long().clamp(0, smax - 1)
     k_cache[rows, at] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _sharded_cache_write(cache, new, pos) -> None:
+    """``cache_update``'s write into a DTensor cache (B, Smax, Kv, D)
+    sharded over the batch and the sequence (``repro``'s decode rules
+    shard "kv_seq"), in place on each rank's shard: DTensor has no
+    strategy for an in-place ``index_put_`` into sharded dimensions, which
+    GSPMD partitions as a dynamic-update-slice.  The new rows and the
+    positions are redistributed to the cache's batch sharding (replicated
+    over the sequence's mesh dimensions), and the rank whose slice of the
+    sequence holds a row's position writes it."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = cache.device_mesh, cache.placements
+    coord = mesh.get_coordinate()
+    smax = cache.shape[1]
+    ranks, index = 1, 0       # over the sequence: this rank's slice of it
+    for m, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            ranks, index = ranks * mesh.size(m), index * mesh.size(m) \
+                + coord[m]
+    same = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+            for p in pl]
+    rows_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in pl]
+    new_l = new.redistribute(mesh, same).to_local()[:, 0].to(cache.dtype)
+    pos_l = pos.redistribute(mesh, rows_pl).to_local()
+    local = cache.to_local()
+    seq_l = smax // ranks
+    at = pos_l.long().clamp(0, smax - 1) - index * seq_l
+    own = (at >= 0) & (at < seq_l)
+    at = at.clamp(0, seq_l - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = local[rows, at]
+    local[rows, at] = torch.where(own.view(-1, *([1] * (keep.dim() - 1))),
+                                  new_l, keep)
 
 
 def attention_decode(cfg: ModelConfig, p: Dict, x: Array, pos: Array,

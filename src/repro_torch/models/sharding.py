@@ -202,8 +202,17 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    spec = spec_for(x.shape, logical)
-    return x.redistribute(_ctx.mesh, placements(spec, _ctx.mesh))
+    return x.redistribute(_ctx.mesh, live_placements(
+        placements(spec_for(x.shape, logical), _ctx.mesh), _ctx.mesh))
+
+
+def live_placements(pl: tuple, mesh) -> tuple:
+    """``pl`` with a shard over a mesh dimension of size 1 (which holds
+    the whole dimension) given as ``Replicate()``: the same data, and no
+    sharded dimension for DTensor's strategies to carry."""
+    from torch.distributed.tensor import Replicate
+    return tuple(p if mesh.size(i) > 1 else Replicate()
+                 for i, p in enumerate(pl))
 
 
 def tree_shardings(tree_shapes: Any, tree_logical: Any, mesh=None,

@@ -920,3 +920,69 @@ def test_durable_crash_image_resumes_on_card(card, tmp_path):
         assert rows["cuda"][k].dtype == rows["cpu"][k].dtype, k
         np.testing.assert_array_equal(rows["cuda"][k], rows["cpu"][k],
                                       err_msg=k)
+
+
+def test_stand_in_tensors_take_the_plain_version_on_card(card):
+    """A real CUDA tensor launches the flash kernel; a FakeTensor on the
+    card (the dry run's stand-ins) takes the plain version and launches
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(1, 128, 8, 64, generator=g, device=card,
+                    dtype=torch.bfloat16)
+    k = torch.randn(1, 128, 2, 64, generator=g, device=card,
+                    dtype=torch.bfloat16)
+    before = fa_kernel.KERNEL.launches
+    fa_ops.flash_attention(q, k, k, True)
+    assert fa_kernel.KERNEL.launches == before + 1
+    with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+        fq, fk = fm.from_tensor(q), fm.from_tensor(k)
+        out = fa_ops.flash_attention(fq, fk, fk, True)
+    assert out.shape == q.shape and out.device.type == "cuda"
+    assert fa_kernel.KERNEL.launches == before + 1
+
+
+def test_dtensor_over_card_shards_never_takes_the_plain_version(
+        card, monkeypatch):
+    """A DTensor over real CUDA shards (a 1-rank NCCL mesh) is routed to
+    the flash kernel's path, whose operand check refuses it: it neither
+    launches on a DTensor nor falls back to the plain version.  Its local
+    shard launches the kernel."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import on_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a DTensor on the card took the plain version")
+    monkeypatch.setattr(fa_ops.ref, "flash_attention", refuse)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        g = torch.Generator(device=card).manual_seed(0)
+        q = torch.randn(1, 128, 8, 64, generator=g, device=card,
+                        dtype=torch.bfloat16)
+        k = torch.randn(1, 128, 2, 64, generator=g, device=card,
+                        dtype=torch.bfloat16)
+        dq, dk = (distribute_tensor(x, mesh, [Replicate()]) for x in (q, k))
+        assert on_cuda(dq)
+        before = fa_kernel.KERNEL.launches
+        with pytest.raises(TypeError, match="local shard"):
+            fa_ops.flash_attention(dq, dk, dk, True)
+        assert fa_kernel.KERNEL.launches == before
+        out = fa_ops.flash_attention(dq.to_local(), dk.to_local(),
+                                     dk.to_local(), True)
+        assert fa_kernel.KERNEL.launches == before + 1
+        assert out.shape == q.shape
+    finally:
+        dist.destroy_process_group()
