@@ -147,12 +147,28 @@ Phases, each fatal on failure:
      a layer), and its FLOPs the dry run's less the plain flash
      version's at each site; (c) the 256-rank cell's row through
      report.fmt_row, its useful_ratio within LAUNCH_USEFUL_BAND.
-Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17) runs
+ 18. the trainer's production layout (FSDP over "data", tensor
+     parallelism over "model", every leaf of the state a DTensor), over
+     an NCCL group of one rank and a (1, 1) mesh, TF32 on: (a) the
+     Trainer on phase 9's model cut to 1 of 62 layers at full width,
+     float32 AdamW, 2 x 4,096 tokens from the LM data plane, 3 steps
+     with a checkpoint at step 2 and a failure injected before step 3;
+     the state it restores is the saved one bit for bit, and its
+     losses, gradient norms and token counts equal the plain Trainer's
+     on the same seed and batches bit for bit; (b) phase 9's cell (4
+     layers) on the production layout: the rank's argument bytes equal
+     phase 17's dry run's, and the step's time and device busy share
+     beside the plain step's (phase 17 (a)) and phase 9's: DTensor's
+     host cost a plain op; (c) scripts/production_layout_2x2.py on the
+     host's CPU (4 gloo ranks, the card machine's torch): the 2 x 2
+     production step held to one process at the tests' limits, started
+     before (a) and waited for before (b).
+Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17, 18) runs
 with the launch counts set to 0 just before it and read just after; the
 kernels line gives each kernel's launches on the paths (feed, read_path,
 serve, train, feed_durable, serve_moe, serve_ssm, serve_vlm,
 serve_encdec, train_moe, train_ssm, train_vlm, train_encdec,
-train_distributed, launch) and their sum.
+train_distributed, launch, train_production) and their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -3761,6 +3777,257 @@ def launch_phase(dev, out_dir) -> tuple:
     return res, res["prefill"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the trainer's production layout (FSDP + tensor parallel)
+# ---------------------------------------------------------------------------
+
+# (a) phase 9's model at 1 of its 62 layers: the checkpoint round trip
+# writes the whole state twice and reads it once (a 4-layer state is
+# 25.84 GB; 1 layer's is 9.76 GB), which is what the phase's time allows
+PROD_LAYERS = 1
+PROD_STEPS = 3               # the failure hits the 3rd, after step 2's save
+PROD_CKPT_EVERY = 2
+PROD_TIMED = 3               # (b)'s timed steps at phase 9's cell
+PROD_CHILD_TIMEOUT = 600     # (c), the 2 x 2 gloo script on the host
+
+
+def production_2x2_start(out_dir):
+    """(c) scripts/production_layout_2x2.py on the host's CPU, started in
+    the background: its stdout and stderr go to a log in ``out_dir``."""
+    d = os.path.join(out_dir, "production_2x2")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    log_fh = open(os.path.join(d, "log.txt"), "w")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "production_layout_2x2.py"),
+         "--out", d], stdout=log_fh, stderr=subprocess.STDOUT, env=env,
+        cwd=ROOT)
+    return proc, log_fh, d
+
+
+def production_2x2_finish(proc, log_fh, d) -> dict:
+    """(c) wait for the script and read its report (the last JSON line):
+    every case within its limits of the one-process step."""
+    try:
+        rc = proc.wait(timeout=PROD_CHILD_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_fh.close()
+    with open(os.path.join(d, "log.txt")) as fh:
+        text = fh.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"production 2 x 2 exited {rc}:\n"
+                             f"{text[-3000:]}")
+    report = json.loads(lines[-1])
+    worst = {name: max(c["err"].items(), key=lambda kv: kv[1])
+             for name, c in report["cases"].items()}
+    log(f"production (c): the 2 x 2 gloo script on the host's CPU, torch "
+        f"{report['torch']}: ok {report['ok']}; worst reading by case "
+        + ", ".join(f"{n} {k} {v:.3g}" for n, (k, v) in worst.items())
+        + "; local state bytes = the dry run's on every rank: "
+        + str(all(c["local_bytes_by_rank"] == c["dryrun_bytes_by_rank"]
+                  for c in report["cases"].values())))
+    if not report["ok"]:
+        raise AssertionError(f"production 2 x 2: {report}")
+    return report
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.models.params import tree_flatten
+    return sum(x.to_local().numel() * x.to_local().element_size()
+               for x in tree_flatten(tree)[0])
+
+
+def production_trainer_check(dev, store, mesh, root) -> dict:
+    """(a) the Trainer on the production layout of a (1, 1) mesh against
+    the plain Trainer, same seed and batches; its checkpoint round trip
+    with an injected failure."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(SERVE_ARCH).replace(num_layers=PROD_LAYERS)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=PROD_STEPS)
+    source = train_source(store, dev, cfg, seq=TRAIN_SEQ,
+                          batch=TRAIN_BATCH)
+    try:
+        it = iter(source)
+        batches = [next(it) for _ in range(PROD_STEPS + 1)]
+    finally:
+        source.close()
+    ck = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, opt, TrainerConfig(
+        steps=PROD_STEPS, ckpt_dir=ck, ckpt_every=PROD_CKPT_EVERY,
+        log_every=1, max_restarts=1, seed=TRAIN_SEED), device=dev,
+        mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_flatten(trainer.state)[0]
+    if trainer.step_fn.layout != "production" or not all(
+            isinstance(x, DTensor) for x in leaves):
+        raise AssertionError(f"production (a): layout "
+                             f"{trainer.step_fn.layout}, leaves "
+                             f"{sorted({type(x).__name__ for x in leaves})}")
+    held = {}
+
+    def fault(step_before):
+        # first time at PROD_CKPT_EVERY: keep the state its checkpoint
+        # holds, then fail; the second time (after the restart) the
+        # restored state must be that one bit for bit
+        if step_before != PROD_CKPT_EVERY:
+            return
+        if "saved" not in held:
+            held["saved"] = [x.to_local().clone()
+                             for x in tree_flatten(trainer.state)[0]]
+            raise RuntimeError("injected failure")
+        held["restored_bit_equal"] = all(
+            torch.equal(x.to_local(), y) for x, y in
+            zip(tree_flatten(trainer.state)[0], held.pop("saved")))
+
+    t0 = time.perf_counter()
+    hist = trainer.run(iter(batches), fault_hook=fault)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    restarts = trainer.restarts
+    del trainer, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the plain Trainer on the batches the production run trained on
+    # (the one the failure hit was dropped, as the restart replays)
+    kept = batches[:PROD_CKPT_EVERY] + batches[PROD_CKPT_EVERY + 1:]
+    plain = Trainer(cfg, opt, TrainerConfig(steps=PROD_STEPS, log_every=1,
+                                            seed=TRAIN_SEED), device=dev)
+    phist = plain.run(iter(kept))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("loss", "grad_norm", "tokens")
+    got = [[h[k] for k in keys] for h in hist]
+    want = [[h[k] for k in keys] for h in phist]
+    res = {"layers": PROD_LAYERS, "steps": [h["step"] for h in hist],
+           "restarts": restarts, "init_s": init_s, "run_s": run_s,
+           "production": got, "plain": want, "keys": keys,
+           "bit_equal": got == want,
+           "restored_bit_equal": held.get("restored_bit_equal")}
+    log(f"production (a): Trainer on the production layout of a (1, 1) "
+        f"NCCL mesh, {SERVE_ARCH} at full width, {PROD_LAYERS} of 62 "
+        f"layers, float32 AdamW, {TRAIN_BATCH} x {TRAIN_SEQ} tokens from "
+        f"the LM data plane: {len(hist)} steps, {restarts} restart from "
+        f"the step-{PROD_CKPT_EVERY} checkpoint after an injected failure "
+        f"(restored state bit-equal: {res['restored_bit_equal']}); "
+        f"(loss, grad_norm, tokens) by step {got} against the plain "
+        f"Trainer's {want}: bit-equal {res['bit_equal']}; init "
+        f"{init_s:.2f} s, run {run_s:.2f} s [{nvidia_smi_line()}]")
+    if (res["steps"] != list(range(1, PROD_STEPS + 1)) or restarts != 1
+            or not res["bit_equal"] or not res["restored_bit_equal"]):
+        raise AssertionError(f"production (a): {res}")
+    return res
+
+
+def production_cost_check(dev, mesh, phase9, launch) -> dict:
+    """(b) phase 9's cell (4 layers, 2 x 4,096 tokens, phase 9's AdamW)
+    on the production layout of the (1, 1) mesh: the per-rank argument
+    bytes against the dry run's, and the step's time and device busy
+    share against the plain step's (phase 17 (a), same cell and batch
+    shape) and phase 9's."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(SERVE_ARCH).replace(num_layers=TRAIN_LAYERS)
+    trainer = Trainer(cfg, phase9_opt(), TrainerConfig(
+        steps=TRAIN_WARM + TRAIN_TIMED, seed=TRAIN_SEED), device=dev,
+        mesh=mesh)
+    g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=g, device=dev,
+                              dtype=torch.int32).cpu().numpy()
+             for k in ("tokens", "targets")}
+    arg_b = _local_bytes(trainer.state) + sum(
+        v.nbytes for v in batch.values())
+    step = trainer.step_fn
+    state, _ = step(trainer.state, batch)            # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(PROD_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof, prof_ms = profiled_seen(lambda: step(state, batch))
+    dev_ms = kernel_device_ms(prof)
+    del prof, state, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    lt = launch["train"]
+    med = statistics.median(times)
+    res = {"arg_bytes": arg_b, "dry_arg_bytes": lt["dry_arg_bytes"],
+           "step_s": med, "step_times_s": times,
+           "plain_step_s": lt["step_s"],
+           "phase9_step_ms_median": phase9["step_ms_median"],
+           "phase9_device_busy_share": phase9["profile"][
+               "device_busy_share"],
+           "profile": {"wall_ms": prof_ms, "device_ms": dev_ms,
+                       "device_busy_share": dev_ms / prof_ms},
+           "plain_ops": lt["real_ops"],
+           "host_us_per_op": (med - lt["step_s"]) / lt["real_ops"] * 1e6,
+           "loss": float(metrics["loss"])}
+    log(f"production (b): phase 9's cell ({TRAIN_LAYERS} layers) on the "
+        f"production layout: argument bytes {arg_b:,} (dry run "
+        f"{res['dry_arg_bytes']:,}); step {med:.4f} s (median of "
+        f"{PROD_TIMED}) against the plain step's {lt['step_s']:.4f} s "
+        f"(phase 17 (a)) and phase 9's {phase9['step_ms_median'] / 1e3:.4f}"
+        f" s; device busy {res['profile']['device_busy_share']:.4f} "
+        f"(phase 9 {res['phase9_device_busy_share']:.4f}); DTensor's host "
+        f"cost {res['host_us_per_op']:.2f} us a plain op over "
+        f"{lt['real_ops']} ops [{nvidia_smi_line()}]")
+    if arg_b != res["dry_arg_bytes"] or not np.isfinite(res["loss"]):
+        raise AssertionError(f"production (b): {res}")
+    return res
+
+
+def production_phase(dev, store, out_dir, phase9, launch) -> dict:
+    """Phase 18: (c) started on the host's CPU, then (a) and, after (c)
+    has ended (its four processes would share the host with the timed
+    steps), (b), over an NCCL group of one rank (a file store) and a
+    (1, 1) mesh; TF32 on, as phase 9."""
+    import torch.distributed as dist
+    from repro_torch.runtime.elastic import build_mesh
+    root = os.path.abspath(os.path.join(out_dir, "production"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    child = production_2x2_start(out_dir)
+    res = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="file://" + os.path.join(root, "pg"),
+                            rank=0, world_size=1)
+    try:
+        mesh = build_mesh(model_parallel=1, device=dev)
+        res["trainer"] = production_trainer_check(dev, store, mesh, root)
+        t0 = time.perf_counter()
+        res["gloo_2x2"] = production_2x2_finish(*child)
+        child = None
+        res["gloo_2x2_wait_s"] = time.perf_counter() - t0
+        res["cost"] = production_cost_check(dev, mesh, phase9, launch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.destroy_process_group()
+        if child is not None:
+            child[0].kill()
+            child[0].wait()
+            child[1].close()
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"),
@@ -3994,6 +4261,21 @@ def main() -> int:
     launch, launch_counts_17 = launch_phase(dev, out_dir)
     phase17_s = time.perf_counter() - t17
     log(f"phase 17: {phase17_s:.1f} s [{smi}]")
+    # phase 18, the trainer's production layout, from counts and path
+    # stats of 0: no hand kernel lies on it (training attention is the
+    # plain chunked version)
+    t18 = time.perf_counter()
+    reset_launch_counts()
+    reset_path_stats()
+    production = production_phase(dev, store, out_dir, train, launch)
+    prod_counts = launch_counts()
+    prod_paths = path_stats()
+    if any(prod_counts.values()) or set(prod_paths) - {
+            ("flash_attention", "plain_on_card")}:
+        raise AssertionError(f"the production layout launched "
+                             f"{prod_counts} or took paths {prod_paths}")
+    phase18_s = time.perf_counter() - t18
+    log(f"phase 18: {phase18_s:.1f} s [{smi}]")
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
@@ -4008,7 +4290,8 @@ def main() -> int:
                    **{f"train_{fam}": c[names[k["name"]]]
                       for fam, c in train_counts.items()},
                    "train_distributed": dist_counts[names[k["name"]]],
-                   "launch": launch_counts_17[names[k["name"]]]}
+                   "launch": launch_counts_17[names[k["name"]]],
+                   "train_production": prod_counts[names[k["name"]]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -4023,9 +4306,9 @@ def main() -> int:
                    "train": train, "families": families,
                    "durable": durable, "train_families": trains,
                    "q5_tf32": q5_tf32, "distributed": distributed,
-                   "launch": launch,
+                   "launch": launch, "production": production,
                    "phase_seconds": {"15": phase15_s, "16": phase16_s,
-                                     "17": phase17_s}},
+                                     "17": phase17_s, "18": phase18_s}},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

@@ -1,0 +1,268 @@
+"""The trainer's production layout on a 2 x 2 mesh of gloo processes on
+the CPU, held to the same step in one process.
+
+    PYTHONPATH=src python scripts/production_layout_2x2.py [--out DIR]
+
+Starts 4 ranks of this script (gloo over a file store in DIR, no port).
+For each of CASES (smoke widths: deepseek-coder-33b, also over 2
+microbatches; mamba2-130m with the factored second moment; internvl2-2b;
+whisper-medium) every rank reads one train state and one batch from
+DIR/<case>/in and DIR/<case>/batch.npz, restores the state onto
+``train_shardings`` of a (2, 2) ("data", "model") mesh and runs one
+``TrainStep`` on it, then the same step in one process without a mesh.
+Where DIR holds no inputs they are made from seeds first: the port's
+init with non-zero moments at step 3, and a batch of 4 rows whose mask
+counts are 30, 27, 5 and 0 (a mean of per-rank means would be far off).
+The production step's new state is saved to DIR/<case>/out and its
+metrics to DIR/<case>/metrics.npz, so a caller can hold them to
+another reference too.
+
+Rank 0 prints, as its last line, one JSON object: ``torch`` (the
+version: DTensor's strategies differ between versions), and per case
+the largest |difference| of the loss and each metric and, over the
+leaves, of the new parameters, m and v, each divided by the largest
+|value| of the one-process result; every rank's count of leaves sharded
+over "data" and over "model"; every rank's local state bytes beside
+``launch/dryrun.py::operand_layout``'s for the mesh; every rank's
+matmul FLOPs of the step (``launch/opcost.OpCounter`` below DTensor)
+beside the one-process step's, which an ideal split would divide by 4
+(read, not held to anything); and ``ok``.  The
+exit code is 0 when every reading is within its case's
+limits (``tol``), every rank shards a
+leaf over each axis and every rank's bytes are the dry run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if os.path.join(ROOT, "src") not in sys.path:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+
+WORLD = 4
+MESH = (2, 2)
+# (name, arch, microbatches, optimizer overrides)
+CASES = [
+    ("deepseek", "deepseek-coder-33b", 1, {}),
+    ("deepseek_microbatches", "deepseek-coder-33b", 2, {}),
+    ("mamba2_factored_v", "mamba2-130m", 1, {"factored_v": True}),
+    ("internvl2", "internvl2-2b", 1, {}),
+    ("whisper", "whisper-medium", 1, {}),
+]
+OPT_KW = dict(lr=1e-3, warmup_steps=2, total_steps=50, weight_decay=0.01)
+# float32 at smoke widths; the sharded step sums in other orders (the
+# loss's mask count and cross-entropy over the data ranks, the row-
+# and column-parallel products over the model ranks).  Each reading is
+# |production - one process| / max |one process|.  Measured on the CPU
+# (torch 2.13.0+cpu), the largest over deepseek, its microbatches,
+# mamba2 and internvl2: loss 7.6e-8, grad_norm 1.7e-6, params 4.4e-8,
+# m 3.9e-6, v 1.9e-6.  whisper's gradient is the sensitive one: its
+# one-process float32 gradient is itself 3.5e-4 (median over the leaves)
+# from the same step in float64, and the production step reads
+# grad_norm 3.5e-5, m 1.6e-4, v 5.8e-5 (every leaf 6e-5 to 2e-4 off,
+# none alone), so it has its own limits.
+TOL = {"loss": 1e-5, "aux": 1e-5, "tokens": 0.0, "grad_norm": 2e-5,
+       "lr": 0.0, "params": 1e-6, "m": 2e-5, "v": 2e-5}
+CASE_TOL = {"whisper": {"grad_norm": 2e-4, "m": 1e-3, "v": 5e-4}}
+
+
+def tol(name: str) -> dict:
+    return {**TOL, **CASE_TOL.get(name, {})}
+
+
+def case_batch(cfg, seed: int = 0) -> dict:
+    """4 rows of 32 positions, masks keeping 30, 27, 5 and 0 tokens;
+    the vlm's patch rows N(0, 0.02²), the encdec's frames N(0, 1)."""
+    from repro_torch.models import api
+    rng = np.random.default_rng(seed)
+    t = api.token_len(cfg, 32)
+    tok = rng.integers(16, cfg.vocab_size, (4, t)).astype(np.int32)
+    keep = np.array([30, 27, 5, 0])
+    batch = {"tokens": tok, "targets": np.roll(tok, -1, 1),
+             "loss_mask": (np.arange(t)[None] < keep[:, None])
+             .astype(np.float32)}
+    if cfg.family in ("vlm", "encdec"):
+        scale = 0.02 if cfg.family == "vlm" else 1.0
+        batch["frontend"] = (rng.normal(size=(
+            4, cfg.num_frontend_tokens, cfg.d_model)) * scale
+        ).astype(np.float32)
+    return batch
+
+
+def write_inputs(d: str, cfg, opt, seed: int = 0) -> None:
+    """The seeded state (non-zero moments, step 3) and batch of a case."""
+    import torch
+
+    from repro_torch.ckpt import save
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train.steps import init_train_state
+    gen = torch.Generator().manual_seed(seed)
+    state = init_train_state(cfg, opt, gen)
+    with torch.no_grad():
+        for m in tree_flatten(state["opt"]["m"])[0]:
+            m.normal_(0.0, 1e-3, generator=gen)
+        for v in tree_flatten(state["opt"]["v"])[0]:
+            v.normal_(0.0, 1e-3, generator=gen).abs_().add_(1e-6)
+    state["step"].fill_(3)
+    save(os.path.join(d, "in"), 3, state)
+    np.savez(os.path.join(d, "batch.npz"), **case_batch(cfg, seed))
+
+
+def rank_main(rank: int, out: str) -> int:
+    import torch
+    import torch.distributed as dist
+    # one thread a rank: four ranks share the host's cores
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        out, "pg"), rank=rank, world_size=WORLD)
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.ckpt import restore, save
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.dryrun import operand_layout
+    from repro_torch.launch.opcost import OpCounter
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.runtime.elastic import build_mesh
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import (make_train_step, train_state_axes,
+                                         train_state_shapes)
+    mesh = build_mesh(model_parallel=MESH[1], device="cpu")
+    report = {"torch": torch.__version__, "cases": {}}
+    ok = True
+    for name, arch, micro, kw in CASES:
+        d = os.path.join(out, name)
+        cfg = smoke_config(arch)
+        opt = OptConfig(**OPT_KW, **kw)
+        shapes = train_state_shapes(cfg, opt)
+        z = np.load(os.path.join(d, "batch.npz"))
+        batch = {k: z[k] for k in z.files}
+        step = make_train_step(cfg, opt, micro, mesh=mesh)
+        state = restore(os.path.join(d, "in"), shapes,
+                        shardings=step.shardings)
+        with OpCounter("cpu") as oc:
+            new, metrics = step(state, batch)
+        save(os.path.join(d, "out"), 4, new)
+        whole = restore(os.path.join(d, "in"), shapes, device="cpu")
+        with OpCounter("cpu") as one:
+            ref, rm = make_train_step(cfg, opt, micro)(
+                copy.deepcopy(whole), batch)
+        err = {k: abs(float(metrics[k]) - float(rm[k]))
+               / max(abs(float(rm[k])), 1e-30) for k in rm}
+        for part, a, b in (("params", new["params"], ref["params"]),
+                           ("m", new["opt"]["m"], ref["opt"]["m"]),
+                           ("v", new["opt"]["v"], ref["opt"]["v"])):
+            pairs = list(zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+            scale = max(float(y.abs().max()) for _, y in pairs)
+            err[part] = max(float((x.full_tensor() - y).abs().max())
+                            for x, y in pairs) / scale
+        leaves = tree_flatten(new)[0]
+        sharded = [sum(isinstance(x.placements[i], Shard) for x in leaves)
+                   for i in range(2)]
+        local = sum(x.to_local().numel() * x.to_local().element_size()
+                    for x in leaves)
+        dry = operand_layout((shapes,), (train_state_axes(cfg, opt),),
+                             mesh, state=(cfg, opt))[1]
+        seen = [None] * WORLD
+        dist.all_gather_object(seen, [sharded, local, dry, oc.cost.flops])
+        within = all(err[k] <= t for k, t in tol(name).items())
+        spread = all(s[0][0] > 0 and s[0][1] > 0 and s[1] == s[2]
+                     for s in seen)
+        ok = ok and within and spread
+        report["cases"][name] = {
+            "err": err, "within_tol": within,
+            "sharded_data_model_by_rank": [s[0] for s in seen],
+            "local_bytes_by_rank": [s[1] for s in seen],
+            "dryrun_bytes_by_rank": [s[2] for s in seen],
+            "flops_by_rank": [s[3] for s in seen],
+            "flops_one_process": one.cost.flops}
+        if rank == 0:
+            np.savez(os.path.join(d, "metrics.npz"),
+                     **{k: v.numpy() for k, v in metrics.items()})
+    report["ok"] = ok
+    if rank == 0:
+        print(json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def run(out: str, timeout: float = 600.0) -> dict:
+    """Make the missing inputs, start the 4 ranks, wait for them (killing
+    all at the first failure or at ``timeout``), and return rank 0's
+    report with each rank's exit code under "exit_codes"."""
+    import time
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.train.optimizer import OptConfig
+    for name, arch, _, kw in CASES:
+        d = os.path.join(out, name)
+        if not os.path.exists(os.path.join(d, "batch.npz")):
+            os.makedirs(d, exist_ok=True)
+            write_inputs(d, smoke_config(arch), OptConfig(**OPT_KW, **kw))
+    pg = os.path.join(out, "pg")
+    if os.path.exists(pg):
+        os.remove(pg)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=env, cwd=ROOT, text=True) for r in range(WORLD)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    codes = [p.returncode for p in procs]
+    lines = [ln for ln in texts[0].splitlines() if ln.startswith("{")]
+    if not lines:
+        bad = next((i for i, c in enumerate(codes) if c), 0)
+        raise RuntimeError(f"production layout 2 x 2: rank {bad} exited "
+                           f"{codes[bad]}:\n{texts[bad][-4000:]}")
+    report = json.loads(lines[-1])
+    report["exit_codes"] = codes
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="inputs, outputs and the process group's file "
+                         "store (default: a temporary directory)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="(internal) run as this rank")
+    args = ap.parse_args(argv)
+    if args.rank is not None:
+        return rank_main(args.rank, args.out)
+    if args.out is None:
+        with tempfile.TemporaryDirectory() as out:
+            report = run(out)
+    else:
+        os.makedirs(args.out, exist_ok=True)
+        report = run(args.out)
+    print(json.dumps(report))
+    return 0 if report["ok"] and not any(report["exit_codes"]) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

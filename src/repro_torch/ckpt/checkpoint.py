@@ -20,12 +20,17 @@ words as ``torch.bfloat16``), so neither side needs ``ml_dtypes``.
 ``restore(..., shardings=)`` is ``repro``'s reshard-on-restore, the
 elastic restart path: each leaf goes onto its ``NamedSharding``'s mesh
 as a DTensor of which every rank holds its own slice, cut from the full
-leaf it read (no collective).  ``restore(..., device=)`` places whole
-leaves on one device.  A state of DTensors is saved as full leaves: every
-rank gathers each leaf (``full_tensor()``), rank 0 writes, and the
-others wait at a barrier until the step is committed.
-``AsyncCheckpointer`` copies the state to host memory and writes it on a
-background thread; on a mesh its ``wait`` holds that barrier.
+leaf it read (no collective); a rank holds one whole leaf at a time.
+``restore(..., device=)`` places whole leaves on one device.  A state of
+DTensors is saved as full leaves, one at a time: every rank gathers the
+leaf (``full_tensor()``, a collective), rank 0 writes it, and the next
+leaf is gathered only then, so a rank's peak is one whole leaf on the
+device and on the host; the others wait at a barrier until the step is
+committed.  ``AsyncCheckpointer`` copies a plain state to host memory
+and writes it on a background thread; a state of DTensors it saves
+synchronously, leaf by leaf (the gathers are collectives every rank
+makes on its own thread, and a host copy of the whole state is what
+the bound excludes).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.models.params import (is_bf16_numpy, tensor_to_numpy,
                                        tree_flatten, tree_map,
                                        tree_unflatten, treedef_str)
+from repro_torch.models.sharding import cut_to_shard
 
 BF16_DESCR = "<V2"
 
@@ -87,32 +93,39 @@ def _write_leaf(path: str, arr: np.ndarray) -> str:
 def save(directory: str, step: int, state: Any, keep: int = 3) -> str:
     """Synchronous checkpoint save with atomic commit. Returns the path.
     ``state``'s leaves are tensors, DTensors or numpy arrays; a state on
-    a mesh is gathered on every rank, written by rank 0, and every rank
-    returns once it is committed."""
+    a mesh is gathered leaf by leaf on every rank, written by rank 0,
+    and every rank returns once it is committed."""
     meshed, writer = _writes(state)
-    if meshed:
-        import torch.distributed as dist
-        host = tree_map(_host, state)
-        try:
-            if writer:
-                _save_host(directory, step, host, keep)
-        finally:
-            dist.barrier()
-        return os.path.join(directory, f"step_{step:08d}")
-    return _save_host(directory, step, state, keep)
+    if not meshed:
+        return _save_host(directory, step, state, keep)
+    import torch.distributed as dist
+    try:
+        _save_host(directory, step, state, keep, write=writer)
+    finally:
+        dist.barrier()
+    return os.path.join(directory, f"step_{step:08d}")
 
 
-def _save_host(directory: str, step: int, state: Any, keep: int) -> str:
-    os.makedirs(directory, exist_ok=True)
+def _save_host(directory: str, step: int, state: Any, keep: int,
+               write: bool = True) -> str:
+    """Write ``state`` leaf by leaf, each made host numpy (gathered, on a
+    mesh) just before it is written; with ``write`` False only the
+    gathers run (a rank of a mesh other than 0)."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if write:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     leaves, struct = tree_flatten(state)
     manifest = {"step": step, "treedef": treedef_str(struct), "leaves": []}
     for i, leaf in enumerate(leaves):
+        if not write:
+            if _is_dtensor(leaf):
+                leaf.full_tensor()          # this rank's part of the gather
+            continue
         arr = _host(leaf)
         dtype = _write_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
         manifest["leaves"].append({
@@ -120,6 +133,9 @@ def _save_host(directory: str, step: int, state: Any, keep: int) -> str:
             "dtype": dtype,
             "crc32": zlib.crc32(arr.tobytes()),
         })
+        del arr
+    if not write:
+        return final
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -204,11 +220,11 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
                 f"leaf {i}: checkpoint shape {arr.shape} != "
                 f"target {tuple(tgt.shape)}")
         if shd is not None:
-            from torch.distributed.tensor import distribute_tensor
             full = _to_tensor(arr, tgt.dtype,
                               resolve_device(shd.mesh.device_type))
-            out.append(distribute_tensor(full, shd.mesh, shd.placements,
-                                         src_data_rank=None))
+            del arr
+            out.append(cut_to_shard(full, shd))
+            del full
             continue
         dev = fixed
         if dev is None:
@@ -220,26 +236,24 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
 
 
 class AsyncCheckpointer:
-    """Background-thread checkpointing (overlaps IO with compute)."""
+    """Background-thread checkpointing (overlaps IO with compute); a
+    state of DTensors is saved synchronously, leaf by leaf (``save``)."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
-        self._barrier = False       # a save on a mesh is in flight
         self.saves = 0
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
-        meshed, writer = _writes(state)
-        # snapshot to host before returning control to the train loop
-        # (on a mesh, the gathers run here, on every rank)
-        host = tree_map(_host, state)
-        self._barrier = meshed
         self.saves += 1
-        if not writer:
+        if _writes(state)[0]:
+            save(self.directory, step, state, self.keep)
             return
+        # snapshot to host before returning control to the train loop
+        host = tree_map(_host, state)
 
         def run():
             try:
@@ -251,15 +265,10 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
-        """Until the last save is committed (on a mesh: on every rank,
-        which all call ``wait`` at the same point)."""
+        """Until the last save is committed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._barrier:
-            import torch.distributed as dist
-            self._barrier = False
-            dist.barrier()
         if self._err is not None:
             err, self._err = self._err, None
             raise err

@@ -14,12 +14,15 @@ compiler to ask, so it runs the step once, as one rank of the mesh:
   * a fake process group of 256 or 512 ranks (``mesh.fake_process_group``)
     carries the production ``DeviceMesh``; its collectives move nothing;
   * every operand is a ``DTensor`` placed by ``tree_shardings`` under the
-    cell's rules, over a ``meta`` tensor of this rank's local shape: no
+    cell's rules (a training cell's state on the production layout by
+    the trainer's own ``train_shardings``: ``cell_layout``), over a
+    ``meta`` tensor of this rank's local shape: no
     memory is allocated and no kernel launches (the hand kernels' routing
     sends stand-ins to their plain versions, and each site the trace
     passes is counted in ``kernels``);
   * the step runs once, under ``sharding_ctx(mesh, rules)``: value,
-    gradient and AdamW update for ``train_4k`` (``TrainStep``),
+    gradient and AdamW update for ``train_4k`` (the trainer's
+    ``TrainStep`` on the mesh; an MoE or hybrid cell's without it),
     ``api.prefill`` or ``api.decode_step``.  DTensor's sharding
     propagation inserts the collectives, as GSPMD does for ``repro``; a
     plain tensor the model makes (positions, masks) is taken as
@@ -34,8 +37,10 @@ compiler to ask, so it runs the step once, as one rank of the mesh:
 An op DTensor has no sharding strategy for fails the cell, with the op's
 name first in ``error``; nothing is replicated in its place.  A ``view``
 whose sharded dimension does not split evenly (56 heads over 16 model
-ranks) is redistributed first, as ``reshape`` is, rather than refused:
-the collective it costs is counted.
+ranks), or an einsum's flatten that torch 2.11 cannot apply to the
+shards as they lie, is redistributed first, as ``reshape`` is, rather
+than refused (``models.sharding.allow_uneven_views``): the collective it
+costs is counted.
 
 Artifacts go to ``launch_artifacts/dryrun_torch/`` (``report.py`` renders
 them); ``--all`` runs each cell in a fresh interpreter, since a process
@@ -64,11 +69,13 @@ from repro_torch.launch.mesh import (H100, fake_process_group, make_mesh,
 from repro_torch.launch.opcost import OpCounter
 from repro_torch.models import api
 from repro_torch.models.params import tree_flatten, tree_unflatten
-from repro_torch.models.sharding import (live_placements,
+from repro_torch.models.sharding import (allow_uneven_views,
+                                         live_placements,
                                          recorded_fallbacks, sharding_ctx,
                                          tree_shardings)
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import (make_train_step, train_state_axes,
+from repro_torch.train.steps import (make_train_step, train_layout,
+                                     train_shardings, train_state_axes,
                                      train_state_shapes)
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -98,13 +105,15 @@ def rules_for(shape, arch: str):
 
 
 def build_cell(cfg, shape, microbatches: int = 1,
-               opt: OptConfig | None = None):
+               opt: OptConfig | None = None, mesh=None):
     """Returns (fn, operand shapes, operand logical axes): the shapes are
     ``meta`` tensors or ``TensorSpec``s.  ``opt`` replaces ``opt_for``'s
-    preset for a training cell."""
+    preset for a training cell, whose step is the trainer's own
+    ``TrainStep`` on ``mesh``."""
     if shape.kind == "train":
         opt = opt or opt_for(cfg)
-        step = make_train_step(cfg, opt, microbatches=microbatches)
+        step = make_train_step(cfg, opt, microbatches=microbatches,
+                               mesh=mesh)
         b_shapes, b_axes = api.input_specs(cfg, shape)
         return (step, (train_state_shapes(cfg, opt), b_shapes),
                 (train_state_axes(cfg, opt), b_axes))
@@ -137,12 +146,17 @@ def local_shape(shape: Sequence[int], placements, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def operand_layout(op_shapes, op_axes, mesh, rules=None):
+def operand_layout(op_shapes, op_axes, mesh, rules=None, state=None):
     """(shardings, per-device argument bytes, fallbacks) of the operands
-    on ``mesh`` under ``rules`` (the cell's overrides of the defaults)."""
+    on ``mesh`` under ``rules`` (the cell's overrides of the defaults).
+    ``state`` = (cfg, opt) of a training cell on the production layout:
+    its first operand, the train state, is placed by the trainer's own
+    ``train_shardings``."""
     with sharding_ctx(mesh, rules):
-        shardings = tuple(tree_shardings(s, a)
-                          for s, a in zip(op_shapes, op_axes))
+        shardings = tuple(
+            train_shardings(*state, mesh) if i == 0 and state else
+            tree_shardings(s, a)
+            for i, (s, a) in enumerate(zip(op_shapes, op_axes)))
         fallbacks = [f"{s} {l} {n}->{a}" for s, l, n, a in
                      recorded_fallbacks()]
     nbytes = 0
@@ -153,6 +167,25 @@ def operand_layout(op_shapes, op_axes, mesh, rules=None):
                 n *= d
             nbytes += n * x.dtype.itemsize
     return shardings, nbytes, fallbacks
+
+
+def cell_layout(cfg, shape, mesh, rules=None, microbatches: int = 1,
+                opt: OptConfig | None = None):
+    """(fn, operand shapes, shardings, per-device argument bytes,
+    fallbacks) of one cell on ``mesh``.  A training cell of a config on
+    the production layout runs the trainer's step on the mesh with the
+    state on ``train_shardings``: what the dry run prices is what the
+    trainer runs.  An MoE or hybrid training cell keeps ``repro``'s
+    rules for every operand and the step without a mesh (ROADMAP item
+    11)."""
+    production = shape.kind == "train" and \
+        train_layout(cfg) == "production"
+    fn, op_shapes, op_axes = build_cell(cfg, shape, microbatches, opt,
+                                        mesh if production else None)
+    state = (cfg, opt or opt_for(cfg)) if production else None
+    shardings, nbytes, fallbacks = operand_layout(op_shapes, op_axes, mesh,
+                                                  rules, state)
+    return fn, op_shapes, shardings, nbytes, fallbacks
 
 
 def stand_ins(shapes, shardings):
@@ -173,24 +206,6 @@ def stand_ins(shapes, shardings):
     flat, struct = tree_flatten(shapes)
     return tree_unflatten(struct, [one(x, s) for x, s in
                                    zip(flat, tree_flatten(shardings)[0])])
-
-
-def allow_uneven_views() -> None:
-    """Let DTensor redistribute the input of a ``view`` that splits a
-    sharded dimension unevenly (56 heads over 16 ranks), as it does for
-    ``reshape``, instead of refusing it; for the dry run's own process.
-    (``_unsafe_view``, einsum's, stays strict: there DTensor keeps a
-    flattened dimension sharded rather than gather it.)"""
-    try:
-        from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
-        from torch.distributed.tensor._ops._view_ops import \
-            register_op_strategy_map
-        register_op_strategy_map(torch.ops.aten.view.default,
-                                 torch.Tensor.view,
-                                 schema_info=RuntimeSchemaInfo(1),
-                                 strict_view=False)
-    except (ImportError, TypeError):
-        pass      # a torch whose views are not strict
 
 
 def _local_storages(leaves) -> Dict[int, int]:
@@ -288,9 +303,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     allow_uneven_views()
     with fake_process_group(chips):
         mesh = make_mesh(dims, axes, device)
-        fn, op_shapes, op_axes = build_cell(cfg, shape, microbatches, opt)
-        shardings, arg_b, fallbacks = operand_layout(op_shapes, op_axes,
-                                                     mesh, rules)
+        fn, op_shapes, shardings, arg_b, fallbacks = cell_layout(
+            cfg, shape, mesh, rules, microbatches, opt)
         operands = tuple(stand_ins(s, sh)
                          for s, sh in zip(op_shapes, shardings))
         with sharding_ctx(mesh, rules):

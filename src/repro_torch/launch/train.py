@@ -12,12 +12,16 @@ Runs on the CUDA device unless ``--device cpu`` is given.  Under
 ``torchrun`` (or with ``RANK`` and ``WORLD_SIZE`` in the environment, and
 ``--init-method`` if not ``env://``) every process is one rank: NCCL on
 the card, gloo on the CPU.  ``build_mesh`` lays the ranks out as (world /
-model_parallel, model_parallel); an MoE config trains its experts
-expert-parallel over the model axis (``moe_ep``), every other weight is
-replicated.  Rank 0 runs the LM data plane and broadcasts each global
-batch (with two feed partitions the row order is not promised to be the
-same across processes, so the ranks do not each run a feed).  Without
-that environment it is world size 1 and no mesh.
+model_parallel, model_parallel).  A dense, ssm, vlm or encdec config
+trains on ``repro``'s production layout: its state DTensors sharded
+FSDP-style over "data" and tensor-parallel over "model"
+(``layout=production``).  An MoE or hybrid config trains its experts
+expert-parallel over the model axis, every other weight replicated
+(``layout=moe_ep``).  Rank 0 runs the LM data plane and broadcasts each
+global batch (with two feed partitions the row order is not promised to
+be the same across processes, so the ranks do not each run a feed);
+each rank wraps its own rows of it.  Without that environment it is
+world size 1 and no mesh (``layout=none``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from repro_torch.models import api
 from repro_torch.models.sharding import sharding_ctx
 from repro_torch.runtime.elastic import build_mesh
 from repro_torch.train import OptConfig
-from repro_torch.train.steps import train_rules
+from repro_torch.train.steps import train_layout, train_rules
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -108,8 +112,10 @@ def main(argv=None):
     if rank == 0:
         shape = "none" if mesh is None else dict(
             zip(mesh.mesh_dim_names, mesh.shape))
+        layout = "none" if mesh is None else train_layout(cfg)
         print(f"arch={cfg.name} params~{api.param_count(cfg)/1e6:.1f}M "
-              f"device={dev} mesh={shape} moe_ep={cfg.moe_ep}", flush=True)
+              f"device={dev} mesh={shape} moe_ep={cfg.moe_ep} "
+              f"layout={layout}", flush=True)
 
     source = feed_source(cfg, dev, args.seq_len, args.batch) \
         if rank == 0 else None

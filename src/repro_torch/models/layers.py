@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import note_path, on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.params import PSpec
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import grad_onto_own_placements, shard
 
 Array = torch.Tensor
 
@@ -440,14 +440,26 @@ def embedding_specs(cfg: ModelConfig) -> Dict:
 
 
 def embed(p: Dict, tokens: Array, dtype: torch.dtype) -> Array:
-    x = p["tok"][tokens.long()].to(dtype)
+    """The table's rows of ``tokens``, sharded over the batch.  Tokens
+    that are a DTensor (the trainer's production layout) are gathered
+    whole first: the read's backward, an accumulating ``index_put``, has
+    no strategy for batch-sharded indices on torch 2.11, and over whole
+    indices it is every rank's own; ``shard`` then takes each rank's
+    rows again.  The values are the plain gather's.  The table's
+    gradient from this read lands on the table's placements
+    (``grad_onto_own_placements``: a tied head adds its own there)."""
+    if hasattr(tokens, "full_tensor"):
+        from torch.distributed.tensor import Replicate
+        tokens = tokens.redistribute(
+            tokens.device_mesh, [Replicate()] * tokens.device_mesh.ndim)
+    x = grad_onto_own_placements(p["tok"])[tokens.long()].to(dtype)
     return shard(x, "batch", "seq", None)
 
 
 def unembed(cfg: ModelConfig, p: Dict, x: Array) -> Array:
     """Float32 logits (B,S,V): the head in x's dtype, widened exactly, so
     the products accumulate in float32 and are never rounded to bf16."""
-    w = p.get("head", p["tok"])
+    w = grad_onto_own_placements(p.get("head", p["tok"]))
     logits = torch.matmul(x.float(), w.to(x.dtype).float().t())
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)

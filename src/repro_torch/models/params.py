@@ -131,25 +131,28 @@ def _std(spec: PSpec) -> float:
     return spec.scale / np.sqrt(max(fan_in, 1))
 
 
+def init_leaf(spec: PSpec, gen: torch.Generator,
+              default_dtype: str) -> torch.Tensor:
+    """One leaf of ``init_tree`` on ``gen``'s device (its draws, taken
+    from ``gen``'s stream where it stands)."""
+    dev = gen.device
+    dt = torch_dtype(spec.dtype or default_dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=dev)
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=dev)
+    return x.mul_(_std(spec)).to(dt)
+
+
 def init_tree(specs: Any, gen: torch.Generator, default_dtype: str) -> Any:
     """Tensors on ``gen``'s device, drawn leaf by leaf in the spec tree's
     order: no float32 temporary larger than one leaf exists.  The same
     std rule as ``repro``; the draws differ (a torch generator is not a
     jax key), so parameters shared with ``repro`` come through
     ``params_from_numpy``."""
-    dev = gen.device
-
-    def one(spec: PSpec) -> torch.Tensor:
-        dt = torch_dtype(spec.dtype or default_dtype)
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=dev)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dt, device=dev)
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return x.mul_(_std(spec)).to(dt)
-
-    return tree_map(one, specs)
+    return tree_map(lambda spec: init_leaf(spec, gen, default_dtype), specs)
 
 
 def shape_tree(specs: Any, default_dtype: str) -> Any:

@@ -17,9 +17,15 @@ tensor.
 
 ``shard`` is the identity on a plain tensor (``repro``'s behaviour
 without a mesh) and redistributes a DTensor to the spec's placements
-(``with_sharding_constraint``'s counterpart).  The port's model code
-computes on plain local tensors, so on its paths ``shard`` stays the
-identity; expert parallelism is explicit (``models/moe_ep.py``).
+(``with_sharding_constraint``'s counterpart).  The trainer's production
+layout (``train/steps.py``) runs the model code on DTensors placed by
+these rules, and there ``shard`` redistributes as GSPMD's constraint
+does; expert parallelism stays explicit (``models/moe_ep.py``).
+
+``cut_to_shard`` turns a whole tensor that every rank holds into the
+DTensor of this rank's shard without a collective (init, restore).
+``allow_uneven_views`` is a process-wide registration every mesh path
+makes before it runs a step.
 """
 
 from __future__ import annotations
@@ -230,3 +236,69 @@ def tree_shardings(tree_shapes: Any, tree_logical: Any, mesh=None,
             mesh, spec_for(tuple(shapes.shape), logical, mesh, rules))
 
     return walk(tree_shapes, tree_logical)
+
+
+def cut_to_shard(x: torch.Tensor, s: NamedSharding):
+    """The DTensor of ``x`` (the whole tensor, the same on every rank of
+    ``s.mesh``) on ``s``'s placements, cut locally: no collective.  The
+    shard owns its memory, so the whole tensor is freed with ``x``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    d = distribute_tensor(x, s.mesh, s.placements, src_data_rank=None)
+    loc = d.to_local()
+    if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+        d = DTensor.from_local(loc.clone(), s.mesh, s.placements,
+                               run_check=False, shape=x.shape,
+                               stride=x.stride())
+    return d
+
+
+def grad_onto_own_placements(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, but under autograd the gradient of this use of a
+    DTensor is redistributed onto ``x``'s own placements before autograd
+    adds it to other uses' (the no-op redistribute's backward): a tied
+    embedding's gather and head hand back gradients on different
+    placements, and torch 2.11's DTensor plans their sum as a Shard ->
+    Partial move it cannot make.  The identity on a plain tensor."""
+    if not hasattr(x, "placements"):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
+def on_local_shards(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that works along ``dim`` alone and is linear
+    (each shard's result is the whole result's shard, Partial sums
+    included): a DTensor not sharded along ``dim`` is mapped shard by
+    shard, keeping its placements; a plain tensor directly."""
+    if not hasattr(x, "placements"):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+    d = dim % x.dim()
+    if any(p.is_shard(d) for p in x.placements):
+        raise ValueError(f"dimension {d} of {tuple(x.shape)} is sharded "
+                         f"({x.placements})")
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def allow_uneven_views() -> None:
+    """Let DTensor redistribute the input of a ``view`` or
+    ``_unsafe_view`` (einsum's flatten) it cannot apply to the shards as
+    they lie, as it does for ``reshape``, instead of refusing the op: a
+    sharded dimension split unevenly (56 heads over 16 ranks), or, on
+    torch 2.11, a flatten of two sharded dimensions (attention's batch
+    over "data" and kv heads over "model"; torch 2.13 keeps that flatten
+    sharded without moving anything).  The registration is process-wide:
+    every path that runs a step on a mesh (the trainer's production
+    layout, the dry run) calls it first."""
+    try:
+        from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+        from torch.distributed.tensor._ops._view_ops import \
+            register_op_strategy_map
+        for op in (torch.ops.aten.view.default,
+                   torch.ops.aten._unsafe_view.default):
+            register_op_strategy_map(op, torch.Tensor.view,
+                                     schema_info=RuntimeSchemaInfo(1),
+                                     strict_view=False)
+    except (ImportError, TypeError):
+        pass      # a torch whose views are not strict

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import PSpec, TensorSpec
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import on_local_shards, shard
 
 Array = torch.Tensor
 
@@ -58,7 +58,10 @@ def ssm_specs(cfg: ModelConfig) -> Dict:
 def _causal_conv(x: Array, kernel: Array) -> Array:
     """Depthwise causal conv. x: (B,S,C); kernel: (W,C)."""
     w, s = kernel.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, w - 1, 0))
+    # the w - 1 leading zeros by cat, not F.pad: torch 2.11's DTensor
+    # cannot plan pad's redistribution on the production layout
+    zeros = torch.zeros_like(x[:, :1]).expand(-1, w - 1, -1)
+    pad = torch.cat([zeros, x], dim=1)
     acc = torch.zeros_like(x)
     for i in range(w):
         acc = acc + pad[:, i:i + s] * kernel[i].to(x.dtype)
@@ -69,6 +72,26 @@ def _proj_in(cfg: ModelConfig, p: Dict, x: Array):
     dt_f = x.dtype
     return tuple(torch.matmul(x, p[n].to(dt_f))
                  for n in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+class _CumSum(torch.autograd.Function):
+    """``torch.cumsum`` along ``dim`` with torch's own backward (the
+    reversed cumulative sum, ``flip``, ``cumsum``, ``flip``) run on each
+    shard of a DTensor gradient (``on_local_shards``): torch 2.11's
+    DTensor has no strategy for ``flip``, and the dimension summed (a
+    chunk's positions) is never sharded.  Bit-equal to torch.cumsum's
+    autograd on plain tensors."""
+
+    @staticmethod
+    def forward(ctx, x: Array, dim: int) -> Array:
+        ctx.dim = dim
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g: Array):
+        d = ctx.dim
+        return on_local_shards(lambda t: t.flip(d).cumsum(d).flip(d), g,
+                               d), None
 
 
 def _decay(diff: Array, tri: Array) -> Array:
@@ -94,7 +117,7 @@ def ssd_chunked(cfg: ModelConfig, xh: Array, dt: Array, b: Array, c: Array,
 
     xdt = xh.float() * dt[..., None]                     # (B,S,H,P)
     a = dt * a_log                                       # (B,S,H)  <= 0
-    cum = torch.cumsum(a.reshape(bsz, nc, q, h), dim=2)  # (B,NC,Q,H)
+    cum = _CumSum.apply(a.reshape(bsz, nc, q, h), 2)     # (B,NC,Q,H)
     xdt_c = xdt.reshape(bsz, nc, q, h, pdim)
     b_c = b.reshape(bsz, nc, q, n).float()
     c_c = c.reshape(bsz, nc, q, n).float()
@@ -110,8 +133,12 @@ def ssd_chunked(cfg: ModelConfig, xh: Array, dt: Array, b: Array, c: Array,
 
     # ---- chunk states ----
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)     # (B,NC,Q,H) <= 1
-    s_chunk = torch.einsum("bckn,bckh,bckhp->bchpn",
-                           b_c, decay_to_end, xdt_c)      # (B,NC,H,P,N)
+    # two operands, the decay taken into x first: the order in which
+    # opt_einsum contracts the three-operand "bckn,bckh,bckhp->bchpn"
+    # (bit-equal to it), and one DTensor runs on the production layout's
+    # shards, where the three-operand form stops at a local `view`
+    xd = xdt_c * decay_to_end[..., None]                  # (B,NC,Q,H,P)
+    s_chunk = torch.einsum("bckn,bckhp->bchpn", b_c, xd)  # (B,NC,H,P,N)
     chunk_decay = torch.exp(cum[:, :, -1, :])             # (B,NC,H)
 
     # ---- inter-chunk recurrence ----

@@ -92,9 +92,25 @@ def _vhat(cfg: OptConfig, v, g2: Tensor) -> Tuple[Any, Tensor]:
 
 def global_norm(tree: Any) -> Tensor:
     """sqrt of the float32 sum of squares over every leaf, in JAX's leaf
-    order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_flatten(tree)[0]))
+    order.  A DTensor leaf's sum of squares is reduced over the ranks
+    (its ``Partial`` sum made whole), so over DTensors the norm is one
+    plain float32 scalar, the same on every rank."""
+    total = None
+    for x in tree_flatten(tree)[0]:
+        sq = torch.sum(torch.square(x.float()))
+        if hasattr(sq, "full_tensor"):
+            sq = sq.full_tensor()
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _write(dst: Tensor, src: Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` first takes ``dst``'s
+    placements (a moment's row mean over a sharded dimension comes back
+    ``Partial`` or on other placements than the moment)."""
+    if hasattr(dst, "placements") and src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -128,13 +144,13 @@ def adamw_update(cfg: OptConfig, params: Any, grads: Any,
         del mhat, vest
         if p.dim() >= 2:                           # decoupled weight decay
             upd = upd + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * upd)
-        m.copy_(m2)
+        _write(p, p.float() - lr * upd)
+        _write(m, m2)
         if isinstance(v, dict):
-            v["row"].copy_(v2["row"])
-            v["col"].copy_(v2["col"])
+            _write(v["row"], v2["row"])
+            _write(v["col"], v2["col"])
         else:
-            v.copy_(v2)
+            _write(v, v2)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
 
 

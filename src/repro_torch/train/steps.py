@@ -14,25 +14,36 @@ state ({"params", "opt": {"m", "v"}, "step"} as numpy, bfloat16 as its
 
 On a device mesh (``mesh=``, a ``DeviceMesh`` with "data" and "model"
 dimensions; one process a rank) the step computes what ``repro``'s
-GSPMD step computes for its batch sharding:
+GSPMD step computes for its batch sharding, in one of two layouts
+(``train_layout``):
 
-  * every rank takes its rows of the global batch (``local_rows``): the
-    data ranks split each microbatch, the model ranks of a data rank
-    hold the same rows;
-  * the state is laid out by ``train_shardings``: every leaf replicated,
-    except, with ``cfg.moe_ep``, the experts, which each model rank
-    holds a slice of (``moe_ep.moe_ffn_ep`` routes tokens to them).
-    ``repro``'s FSDP ("embed" over "data") and dense tensor parallelism
-    are memory layouts that leave the numbers as they are and are not
-    ported (ROADMAP);
-  * the loss is the global batch's: each rank's masked cross-entropy sum
-    over the data ranks' summed mask count (a mean of per-rank means
-    would weigh unequal masks wrongly), plus the balance loss averaged
-    over the data ranks;
-  * each rank back-propagates its share (its objective over the model
-    axis's size), and the gradient of a leaf is summed over the mesh
-    dimensions on which the leaf is replicated; the clipping norm sums
-    each slice's squares over the dimensions that shard it.
+  * **production** (every config without experts: dense, ssm, vlm,
+    encdec): ``repro``'s own layout.  Every leaf of the state is a
+    DTensor placed by ``train_shardings`` under ``DEFAULT_RULES``: FSDP
+    ("embed" over "data"), tensor parallelism ("heads", "ffn", "vocab",
+    "inner", "ssm_heads" over "model"), the moments as their parameters
+    (ZeRO), shards over a mesh dimension of size 1 given as replicas
+    (``live_placements``).  The batch is a DTensor sharded over the
+    batch axes, built from this rank's rows (``local_rows``) with no
+    scatter.  ``api.loss`` runs on them under ``sharding_ctx`` and
+    ``implicit_replication`` (the plain tensors the models make --
+    positions, masks, the SSD triangle -- are replicas), and DTensor's
+    propagation inserts the collectives, as GSPMD does: the global mask
+    count, the gradient sums (``Partial`` gradients reduced onto their
+    leaves' placements) and the clipping norm come out of it;
+  * **moe_ep** (every config with experts: moe, hybrid): every leaf a
+    plain tensor, replicated, except, with ``cfg.moe_ep``, the experts,
+    which each model rank holds a slice of (``moe_ep.moe_ffn_ep`` routes
+    tokens to them; ``local_state`` / ``global_state`` carry a whole
+    state in and out).  The collectives are explicit: the loss is the
+    global batch's (each rank's masked cross-entropy sum over the data
+    ranks' summed mask count, plus the balance loss averaged over the
+    data ranks), each rank back-propagates its share (its objective
+    over the model axis's size), the gradient of a leaf is summed over
+    the mesh dimensions on which the leaf is replicated, and the
+    clipping norm sums each slice's squares over the dimensions that
+    shard it.  MoE routing does not run under DTensor yet (ROADMAP item
+    11).
 """
 
 from __future__ import annotations
@@ -45,11 +56,15 @@ import torch
 from repro_torch import DeviceLike
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
-from repro_torch.models.params import (params_from_numpy, tensor_to_numpy,
-                                       tree_flatten, tree_map,
-                                       tree_unflatten)
-from repro_torch.models.sharding import (DEFAULT_RULES, Rules, mesh_shape,
-                                         sharding_ctx, tree_shardings)
+from repro_torch.models.params import (init_leaf, params_from_numpy,
+                                       tensor_to_numpy, tree_flatten,
+                                       tree_map, tree_unflatten)
+from repro_torch.models.sharding import (DEFAULT_RULES, Rules,
+                                         allow_uneven_views, cut_to_shard,
+                                         live_placements,
+                                         mesh_shape, placements,
+                                         sharding_ctx, spec_for)
+from repro_torch.runtime.elastic import remesh_shardings
 from repro_torch.train.optimizer import (OptConfig, adamw_init, adamw_update,
                                          opt_state_axes)
 
@@ -57,12 +72,40 @@ TrainState = Dict[str, Any]        # {"params", "opt", "step"}
 Tensor = torch.Tensor
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def init_train_state(cfg: ModelConfig, opt: OptConfig,
-                     gen: torch.Generator) -> TrainState:
-    """Parameters drawn from ``gen`` on its device, zero moments, step 0."""
-    params = api.init_params(cfg, gen)
-    return {"params": params, "opt": adamw_init(opt, params),
-            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+                     gen: torch.Generator, shardings: Any = None
+                     ) -> TrainState:
+    """Parameters drawn from ``gen`` on its device, zero moments, step 0.
+    With ``shardings`` (``train_shardings`` of the production layout)
+    every leaf is a DTensor of this rank's shard: each parameter is
+    drawn whole, in the same order and with the same draws as without,
+    cut (``cut_to_shard``) and freed before the next, and the moments
+    are made as shards, so a rank holds at most one whole leaf beside
+    its shards."""
+    if shardings is None:
+        params = api.init_params(cfg, gen)
+        return {"params": params, "opt": adamw_init(opt, params),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=gen.device)}
+    from torch.distributed.tensor import zeros
+
+    def draw(spec, s):
+        if isinstance(spec, dict):
+            return {k: draw(v, s[k]) for k, v in spec.items()}
+        return cut_to_shard(init_leaf(spec, gen, cfg.param_dtype), s)
+
+    def zero(x, s):
+        return zeros(tuple(x.shape), dtype=x.dtype, device_mesh=s.mesh,
+                     placements=s.placements)
+    shapes = train_state_shapes(cfg, opt)
+    return {"params": draw(api.param_specs(cfg), shardings["params"]),
+            "opt": _zip_map(zero, shapes["opt"], shardings["opt"]),
+            "step": zero(shapes["step"], shardings["step"])}
 
 
 def train_state_shapes(cfg: ModelConfig, opt: OptConfig) -> TrainState:
@@ -78,10 +121,21 @@ def train_state_axes(cfg: ModelConfig, opt: OptConfig) -> TrainState:
     return {"params": axes, "opt": opt_state_axes(opt, axes), "step": ()}
 
 
+def train_layout(cfg: ModelConfig) -> str:
+    """The trainer's layout on a mesh: "production" (``repro``'s
+    ``DEFAULT_RULES``) for a config without experts, "moe_ep" (explicit
+    collectives, experts over "model" with ``cfg.moe_ep``) for one
+    with them."""
+    return "moe_ep" if cfg.num_experts else "production"
+
+
 def train_rules(cfg: ModelConfig) -> Rules:
-    """The trainer's layout on a mesh: rows over the batch axes, an
-    expert-parallel config's experts over "model", every other logical
-    axis replicated."""
+    """The rules of ``train_layout``: ``DEFAULT_RULES`` on the production
+    layout; on moe_ep, rows over the batch axes, an expert-parallel
+    config's experts over "model", every other logical axis
+    replicated."""
+    if train_layout(cfg) == "production":
+        return dict(DEFAULT_RULES)
     rules: Rules = {name: None for name in DEFAULT_RULES}
     rules["batch"] = DEFAULT_RULES["batch"]
     if cfg.moe_ep:
@@ -107,10 +161,15 @@ def train_layout_axes(cfg: ModelConfig, opt: OptConfig) -> TrainState:
 
 def train_shardings(cfg: ModelConfig, opt: OptConfig, mesh) -> Any:
     """The ``NamedSharding`` of every leaf of the train state on ``mesh``
-    (the tree ``ckpt.restore(..., shardings=)`` takes)."""
-    return tree_shardings(train_state_shapes(cfg, opt),
-                          train_layout_axes(cfg, opt), mesh,
-                          train_rules(cfg))
+    (``remesh_shardings`` under ``train_rules``, with
+    ``live_placements``): the placements of the trainer's DTensors, the
+    tree ``ckpt.restore(..., shardings=)`` takes, and what the dry run
+    prices."""
+    plan = remesh_shardings(train_state_shapes(cfg, opt),
+                            train_layout_axes(cfg, opt), mesh,
+                            train_rules(cfg))
+    return tree_map(lambda s: s._replace(
+        placements=live_placements(s.placements, s.mesh)), plan)
 
 
 def _zip_map(fn, tree: Any, shardings: Any) -> Any:
@@ -125,21 +184,17 @@ def _replicated(s) -> bool:
 
 
 def local_state(state: Any, shardings: Any) -> Any:
-    """Every leaf's slice on this rank (``to_local()`` of the leaf as a
-    DTensor, cut from the whole leaf each rank holds: no collective)."""
-    from torch.distributed.tensor import distribute_tensor
-
+    """(moe_ep) every leaf's slice on this rank (``to_local()`` of the
+    leaf as a DTensor, cut from the whole leaf each rank holds: no
+    collective)."""
     def one(x, s):
-        if _replicated(s):
-            return x
-        return distribute_tensor(x, s.mesh, s.placements,
-                                 src_data_rank=None).to_local()
+        return x if _replicated(s) else cut_to_shard(x, s).to_local()
     return _zip_map(one, state, shardings)
 
 
 def global_state(state: Any, shardings: Any) -> Any:
-    """The ranks' slices as DTensors (what ``ckpt.save`` gathers whole);
-    they share the local tensors' storage."""
+    """(moe_ep) the ranks' slices as DTensors (what ``ckpt.save``
+    gathers whole); they share the local tensors' storage."""
     from torch.distributed.tensor import DTensor
     return _zip_map(lambda x, s: DTensor.from_local(
         x, s.mesh, s.placements, run_check=False), state, shardings)
@@ -188,19 +243,83 @@ def batch_to(batch: Dict, device: torch.device) -> Dict[str, Tensor]:
 class TrainStep:
     """``step(state, batch) -> (state, metrics)``, in two halves that a
     caller may time apart: ``accumulate`` (forward and backward over the
-    microbatches) and ``update`` (the optimizer).  With ``mesh`` the
-    state holds this rank's slices (``local_state``) and ``batch`` is
-    the global batch."""
+    microbatches) and ``update`` (the optimizer).  ``batch`` is the
+    global batch.  Without ``mesh`` the state is plain tensors.  With
+    ``mesh`` the step runs ``layout`` (``train_layout``): on
+    "production" the state is the DTensor tree ``train_shardings``
+    places (``init_train_state(..., shardings=)``,
+    ``ckpt.restore(..., shardings=)``)
+    and the step takes its collectives from DTensor (``_grad_dtensor``);
+    on "moe_ep" the state holds this rank's slices (``local_state``) and
+    ``_global_loss``, ``_reduce``, ``_grad_norm`` and ``_data_sum`` make
+    the collectives.  Metrics come back as plain tensors, the same on
+    every rank."""
 
     def __init__(self, cfg: ModelConfig, opt: OptConfig,
                  microbatches: int = 1, mesh=None):
         self.cfg, self.opt, self.microbatches = cfg, opt, microbatches
         self.mesh = mesh
+        self.layout = None
         if mesh is not None:
             sizes = mesh_shape(mesh)
             self.n_data = sizes.get("pod", 1) * sizes.get("data", 1)
             self.n_model = sizes.get("model", 1)
+            self.layout = train_layout(cfg)
             self.shardings = train_shardings(cfg, opt, mesh)
+
+    @property
+    def production(self) -> bool:
+        return self.layout == "production"
+
+    def _dbatch(self, batch: Dict, dev: torch.device) -> List[Dict]:
+        """(production) the microbatches of a global batch as DTensors
+        sharded over the batch axes, each from this rank's rows of it
+        (no scatter).  A batch of DTensors (the dry run's) is taken as
+        placed and split along dim 0."""
+        from torch.distributed.tensor import DTensor
+        n = self.microbatches
+        if all(_is_dtensor(v) for v in batch.values()):
+            b = batch["tokens"].shape[0]
+            with _replicas(True):
+                return [{k: v.reshape((n, b // n) + tuple(v.shape[1:]))[i]
+                         for k, v in batch.items()} for i in range(n)] \
+                    if n > 1 else [batch]
+        rows = batch_to(local_rows(batch, self.mesh, n), dev)
+        rules = train_rules(self.cfg)
+        out = []
+        for i in range(n):
+            mb = {}
+            for k, v in rows.items():
+                b = v.shape[0] // n
+                loc = v.reshape((n, b) + tuple(v.shape[1:]))[i]
+                glob = (b * self.n_data,) + tuple(v.shape[1:])
+                pl = live_placements(placements(spec_for(
+                    glob, ("batch",), self.mesh, rules), self.mesh),
+                    self.mesh)
+                mb[k] = DTensor.from_local(loc, self.mesh, pl,
+                                           run_check=False)
+            out.append(mb)
+        return out
+
+    def _grad_dtensor(self, params: Any, batch: Dict
+                      ) -> Tuple[Tensor, Dict, List[Tensor]]:
+        """(production) loss, metrics and the gradients of one
+        microbatch, each gradient redistributed onto its leaf's
+        placements (a ``Partial`` sum reduced there)."""
+        allow_uneven_views()
+        flat, struct = tree_flatten(params)
+        leaves = [p.detach().requires_grad_() for p in flat]
+        with sharding_ctx(self.mesh, train_rules(self.cfg)), \
+                _replicas(True), torch.enable_grad():
+            loss, metrics = api.loss(self.cfg,
+                                     tree_unflatten(struct, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     if g.placements != p.placements else g
+                     for g, p in zip(grads, flat)]
+        return (_whole(loss.detach()),
+                {k: _whole(v.detach()) for k, v in metrics.items()}, grads)
 
     def _data_sum(self, x: Tensor) -> Tensor:
         """``x`` summed over the data ranks (in place)."""
@@ -213,6 +332,8 @@ class TrainStep:
 
     def _grad(self, params: Any, batch: Dict
               ) -> Tuple[Tensor, Dict, List[Tensor]]:
+        if self.production:
+            return self._grad_dtensor(params, batch)
         flat, struct = tree_flatten(params)
         leaves = [p.detach().requires_grad_() for p in flat]
         with torch.enable_grad():
@@ -298,46 +419,54 @@ class TrainStep:
         """(loss, last microbatch's metrics, gradient tree).  With one
         microbatch the gradients keep the parameters' dtypes; with more
         they are float32 sums of each divided by the count (on a mesh,
-        float32 sums over the ranks)."""
+        float32 sums over the ranks; on the production layout each
+        microbatch's gradient is reduced onto its leaf's placements
+        before it is summed, so the sums hold those placements)."""
         dev = tree_flatten(params)[0][0].device
         n = self.microbatches
-        if self.mesh is not None:
-            batch = local_rows(batch, self.mesh, n)
-        batch = batch_to(batch, dev)
         struct = tree_flatten(params)[1]
-        if n == 1:
-            loss, metrics, grads = self._grad(params, batch)
+        if self.production:
+            mbs = self._dbatch(batch, dev)
         else:
+            if self.mesh is not None:
+                batch = local_rows(batch, self.mesh, n)
+            batch = batch_to(batch, dev)
             b = batch["tokens"].shape[0]
             if b % n:
                 raise ValueError(f"batch of {b} rows does not split into "
                                  f"{n} microbatches")
+            mbs = [{k: v.reshape((n, b // n) + v.shape[1:])[i]
+                    for k, v in batch.items()} for i in range(n)] \
+                if n > 1 else [batch]
+        if n == 1:
+            loss, metrics, grads = self._grad(params, mbs[0])
+        else:
             grads = None
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(n):
-                mb = {k: v.reshape((n, b // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+            for mb in mbs:
                 lm, metrics, g = self._grad(params, mb)
                 if grads is None:
-                    grads = [torch.zeros(x.shape, dtype=torch.float32,
-                                         device=dev) for x in g]
+                    grads = [torch.zeros_like(x, dtype=torch.float32)
+                             for x in g]
                 grads = [a + x.float() / n for a, x in zip(grads, g)]
                 del g
                 loss = loss + lm / n
-        if self.mesh is not None:
+        if self.layout == "moe_ep":
             grads = self._reduce(grads)
         return loss, metrics, tree_unflatten(struct, grads)
 
     def update(self, state: TrainState, loss: Tensor, metrics: Dict,
                grads: Any) -> Tuple[TrainState, Dict]:
-        gnorm = None if self.mesh is None else self._grad_norm(grads)
-        params, opt_state, om = adamw_update(
-            self.opt, state["params"], grads, state["opt"], state["step"],
-            grad_norm=gnorm)
-        new_state = {"params": params, "opt": opt_state,
-                     "step": state["step"] + 1}
+        gnorm = self._grad_norm(grads) if self.layout == "moe_ep" else None
+        with _replicas(self.production):
+            params, opt_state, om = adamw_update(
+                self.opt, state["params"], grads, state["opt"],
+                state["step"], grad_norm=gnorm)
+            step = state["step"] + 1
+        new_state = {"params": params, "opt": opt_state, "step": step}
         out = {"loss": loss, **{k: v for k, v in metrics.items()
-                                if k != "loss"}, **om}
+                                if k != "loss"},
+               **{k: _whole(v) for k, v in om.items()}}
         return new_state, out
 
     def __call__(self, state: TrainState, batch: Dict
@@ -345,9 +474,24 @@ class TrainStep:
         return self.update(state, *self.accumulate(state["params"], batch))
 
 
+def _whole(x: Tensor) -> Tensor:
+    """A DTensor scalar as the plain tensor every rank holds."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def _replicas(on: bool):
+    """``implicit_replication`` when ``on`` (plain tensors beside the
+    production layout's DTensors are replicas)."""
+    import contextlib
+    if not on:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def make_train_step(cfg: ModelConfig, opt: OptConfig,
                     microbatches: int = 1, mesh=None) -> TrainStep:
     """``repro``'s step builder: ``microbatches`` splits the per-step
     batch along dim 0 and accumulates gradients in float32; ``mesh``
-    runs it as one rank of a data- and expert-parallel step."""
+    runs it as one rank of a mesh, on ``train_layout(cfg)``."""
     return TrainStep(cfg, opt, microbatches, mesh)

@@ -11,11 +11,17 @@
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``.
 With ``mesh`` (one process a rank; ``runtime.elastic.build_mesh``) every
-rank runs the same loop over the same global batches: the state holds
-this rank's slices (``steps.local_state``), checkpoints hold whole
-leaves (gathered, written by rank 0) and restore onto the mesh's
-placements.  A step that fails on one rank only is not recovered across
-the mesh: the others wait in its collectives.
+rank runs the same loop over the same global batches, on the step's
+``train_layout``.  On the production layout (every config without
+experts) the state is the DTensor tree of ``repro``'s production
+placements (FSDP over "data", tensor parallelism over "model"): drawn
+leaf by leaf and cut to this rank's shards, so no rank ever holds the
+whole state; checkpoints gather one leaf at a time (rank 0 writes
+``repro``'s layout) and restore onto the mesh's placements through
+``remesh_shardings``, so a checkpoint written on one mesh trains on
+another.  On moe_ep the state holds this rank's slices
+(``steps.local_state``).  A step that fails on one rank only is not
+recovered across the mesh: the others wait in its collectives.
 """
 
 from __future__ import annotations
@@ -87,19 +93,28 @@ class Trainer:
         self.mesh = mesh
         self.step_fn = make_train_step(model_cfg, opt_cfg, tcfg.microbatches,
                                        mesh)
-        self.state = self._init_state()
         self.ckpt = (AsyncCheckpointer(tcfg.ckpt_dir, tcfg.ckpt_keep)
                      if tcfg.ckpt_dir else None)
         self.history: List[Dict[str, float]] = []
         self.step_times: List[Dict[str, float]] = []
         self.restarts = 0
-        if tcfg.ckpt_dir and latest_step(tcfg.ckpt_dir) is not None:
-            self._restore()
+        self.state = None
+        self.state = self._fresh_state()
+
+    def _fresh_state(self):
+        """The latest checkpoint's state, or without one the seed's."""
+        if self.tcfg.ckpt_dir and latest_step(self.tcfg.ckpt_dir) is not None:
+            return self._restore()
+        return self._init_state()
 
     def _init_state(self):
-        """The seed's whole state (the same on every rank), cut to this
-        rank's slices on a mesh."""
+        """The seed's state: on the production layout drawn as this
+        rank's shards, leaf by leaf; on moe_ep the whole state (the same
+        on every rank) cut to this rank's slices."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        if self.step_fn.production:
+            return init_train_state(self.model_cfg, self.opt_cfg, gen,
+                                    self.step_fn.shardings)
         state = init_train_state(self.model_cfg, self.opt_cfg, gen)
         if self.mesh is not None:
             state = local_state(state, self.step_fn.shardings)
@@ -108,21 +123,28 @@ class Trainer:
     # ----------------------------------------------------------------- ckpt
     def _save(self, step: int) -> None:
         if self.ckpt is not None:
-            state = self.state if self.mesh is None else global_state(
-                self.state, self.step_fn.shardings)
+            state = self.state
+            if self.step_fn.layout == "moe_ep":
+                state = global_state(state, self.step_fn.shardings)
             self.ckpt.save(step, state)
 
-    def _restore(self) -> None:
+    def _restore(self):
+        """The latest checkpoint onto this trainer's layout: whole leaves
+        on the device without a mesh; on a mesh each rank reads its
+        shards of ``step_fn.shardings`` (``remesh_shardings`` of this
+        mesh), kept as DTensors on the production layout and as local
+        slices on moe_ep."""
         step = latest_step(self.tcfg.ckpt_dir)
         log.warning("restoring from checkpoint step %s", step)
-        if self.mesh is None:
-            self.state = restore(self.tcfg.ckpt_dir, self.state, step)
-            return
         whole = train_state_shapes(self.model_cfg, self.opt_cfg)
-        self.state = tree_map(
-            lambda x: x.to_local(),
-            restore(self.tcfg.ckpt_dir, whole, step,
-                    shardings=self.step_fn.shardings))
+        if self.mesh is None:
+            return restore(self.tcfg.ckpt_dir, whole, step,
+                           device=self.device)
+        state = restore(self.tcfg.ckpt_dir, whole, step,
+                        shardings=self.step_fn.shardings)
+        if self.step_fn.production:
+            return state
+        return tree_map(lambda x: x.to_local(), state)
 
     # ------------------------------------------------------------------ run
     def _step(self, batch: Dict, wait_s: float) -> Dict:
@@ -180,9 +202,7 @@ class Trainer:
                 # the newest one issued (a save may still be writing it)
                 self.ckpt.wait()
                 self.state = None
-                self.state = self._init_state()
-                if latest_step(self.tcfg.ckpt_dir) is not None:
-                    self._restore()
+                self.state = self._fresh_state()
                 log.warning("restart %d at step %s", self.restarts,
                             int(self.state["step"]))
         if self.ckpt is not None:

@@ -14,6 +14,8 @@ subprocess with ``--xla_force_host_platform_device_count``, as
 ``tests/test_moe_ep.py`` does, and hands its inputs and results over as
 ``.npz`` files."""
 
+import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -34,9 +36,12 @@ from repro.models import sharding as JSH
 from repro.train import optimizer as JO
 from repro.train import steps as JS
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import smoke_config as t_smoke_config
 from repro_torch.models import api as tapi
 from repro_torch.models import sharding as TSH
 from repro_torch.models.params import tree_flatten
+from repro_torch.train import optimizer as TO
+from repro_torch.train import steps as TS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -156,7 +161,13 @@ def test_spec_for_and_fallbacks_match_repro_on_2x4(rules):
 def test_param_tree_shardings_match_repro_at_full_width(arch, shape):
     """Every parameter of a published config on the mesh: the same spec
     leaf for leaf (qwen1.5's 40 heads fall back on 4 and 8), the same
-    fallbacks, and DTensor placements that follow the spec."""
+    fallbacks, and DTensor placements that follow the spec.  The whole
+    train state under the trainer's ``train_shardings`` (plain and
+    factored second moment): on the production layout (qwen1.5,
+    whisper) repro's spec of every leaf, the moments' included, with
+    the live placements (a shard over a size-1 mesh dimension is a
+    replica); on moe_ep (olmoe, jamba) each moment on its parameter's
+    placements."""
     from torch.distributed.tensor import Replicate, Shard
     tm, jm = _t_mesh(shape), _j_mesh(shape)
     with TSH.sharding_ctx(tm), JSH.sharding_ctx(jm):
@@ -178,6 +189,29 @@ def test_param_tree_shardings_match_repro_at_full_width(arch, shape):
                     if a == name or isinstance(a, tuple) and name in a]
             assert g.placements[d] == (Shard(dims[0]) if dims
                                        else Replicate())
+    cfg = t_get_config(arch)
+    for opt_kw in ({}, {"factored_v": True, "state_dtype": "bfloat16"}):
+        sh = TS.train_shardings(cfg, TO.OptConfig(**opt_kw), tm)
+        state = tree_flatten(sh)[0]
+        jo = JO.OptConfig(**opt_kw)
+        jcfg = j_get_config(arch)
+        if TS.train_layout(cfg) == "moe_ep":
+            assert ([x.placements for x in tree_flatten(sh["opt"]["m"])[0]]
+                    == [x.placements for x in tree_flatten(sh["params"])[0]])
+            continue
+        with JSH.sharding_ctx(jm):
+            axes = jax.tree.leaves(JS.train_state_axes(jcfg, jo),
+                                   is_leaf=lambda x: isinstance(x, tuple))
+            want = [JSH.spec_for(x.shape, a) for x, a in zip(
+                jax.tree.leaves(JS.train_state_shapes(jcfg, jo)), axes)]
+        assert [g.spec for g in state] == [tuple(w) for w in want]
+        for g in state:
+            for d, name in enumerate(("data", "model")):
+                dims = [i for i, a in enumerate(g.spec)
+                        if a == name or isinstance(a, tuple) and name in a]
+                assert g.placements[d] == (
+                    Shard(dims[0]) if dims and shape[d] > 1
+                    else Replicate())
 
 
 def test_shard_is_the_identity_on_plain_tensors():
@@ -270,7 +304,8 @@ def dist_runs(tmp_path_factory):
     np.savez(d / "moe_in.npz", x=x, c=c,
              **{"p_" + k: np.asarray(v) for k, v in p.items()})
     procs = [_start_repro(REPRO_REFS.format(d=str(d), moe_kw=MOE_KW), 4)]
-    procs += _start_ranks(d, 4, RANKS4.format(moe_kw=MOE_KW))
+    procs += _start_ranks(d, 4, RANKS4.format(moe_kw=MOE_KW,
+                                              step_kw=STEP_KW))
     return d, _wait_all(procs, 300)[1]
 
 
@@ -367,6 +402,66 @@ for k, gk in zip(sorted(p), grads[1:]):
 np.savez(OUT + f"/moe_{{RANK}}.npz", y=y.detach().numpy(),
          aux=aux.detach().numpy(), gx=gx.numpy(),
          **{{"g_" + k: v for k, v in gp.items()}})
+
+# (4) the production-layout Trainer: one step on (2, 2) with a
+# checkpoint, restored onto (4, 1), (1, 4) and no mesh, one more step
+# on each
+import json, shutil
+from repro_torch.models.params import tree_flatten
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.steps import train_state_shapes
+from repro_torch.train.trainer import Trainer, TrainerConfig
+cfg = smoke_config("deepseek-coder-33b")
+opt = OptConfig(**{step_kw!r})
+rng = np.random.default_rng(5)
+batches = []
+for _ in range(2):
+    tok = rng.integers(16, cfg.vocab_size, (4, 32)).astype(np.int32)
+    batches.append({{"tokens": tok, "targets": np.roll(tok, -1, 1)}})
+ck = OUT + "/trainer_ckpt"
+tr = Trainer(cfg, opt, TrainerConfig(steps=1, ckpt_dir=ck, ckpt_every=1,
+                                     log_every=1),
+             device="cpu", mesh=build_mesh(model_parallel=2, device="cpu"))
+from repro_torch.train.steps import init_train_state
+drawn = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+init_bit_equal = all(torch.equal(x.full_tensor(), y) for x, y in zip(
+    tree_flatten(tr.state)[0], tree_flatten(drawn)[0]))
+tr.run(iter(batches[:1]))
+saved = [x.full_tensor() for x in tree_flatten(tr.state)[0]]
+shard_kinds = sorted({{type(p).__name__ for x in tree_flatten(tr.state)[0]
+                      for p in x.placements}})
+report = {{"trained_on": dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)),
+           "placements": shard_kinds, "init_bit_equal": init_bit_equal}}
+# the single process restores (Trainer without a mesh, from its own copy
+# of the checkpoint) and steps first: the reference
+shutil.copytree(ck, OUT + f"/trainer_ckpt_none_{{RANK}}")
+one = Trainer(cfg, opt, TrainerConfig(steps=2, log_every=1, ckpt_dir=OUT
+                                      + f"/trainer_ckpt_none_{{RANK}}"),
+              device="cpu")
+report["none_bit_equal"] = all(
+    torch.equal(a, b) for a, b in zip(tree_flatten(one.state)[0], saved))
+ref = one.run(iter(batches[1:]))[-1]
+ref_state = tree_flatten(one.state)[0]
+for mp in (1, WORLD):
+    d = OUT + f"/trainer_ckpt_{{mp}}"
+    if RANK == 0:
+        shutil.copytree(ck, d)
+    dist.barrier()
+    t2 = Trainer(cfg, opt, TrainerConfig(steps=2, ckpt_dir=d, log_every=1),
+                 device="cpu",
+                 mesh=build_mesh(model_parallel=mp, device="cpu"))
+    flat = tree_flatten(t2.state)[0]
+    bit = all(torch.equal(x.full_tensor(), y) for x, y in zip(flat, saved))
+    h = t2.run(iter(batches[1:]))[-1]
+    err = {{k: abs(h[k] - ref[k]) for k in ("loss", "grad_norm")}}
+    err["state"] = max(float((x.full_tensor() - y).abs().max())
+                       for x, y in zip(tree_flatten(t2.state)[0], ref_state))
+    report[f"mesh_{{mp}}"] = {{"shape": dict(zip(t2.mesh.mesh_dim_names,
+                                              t2.mesh.shape)),
+                              "bit_equal": bit, "err": err,
+                              "step": int(t2.state["step"])}}
+if RANK == 0:
+    print("trainer " + json.dumps(report), flush=True)
 """
 
 
@@ -456,6 +551,36 @@ def test_moe_ffn_ep_gradient_is_the_single_device_gradient(dist_runs):
                                        err_msg=name)
 
 
+# the production-layout Trainer's checkpoint onto other meshes.  float32
+# at smoke widths; the meshes split the sums differently.  The state is
+# compared leaf by leaf, absolute: the second step's update m / sqrt(v)
+# is near lr x sign(g) (moments from one step), so a gradient entry near
+# 0 moves its parameter by up to lr (5e-4 here) on a last-bit change.
+# Measured: loss 0, grad_norm 4.8e-6, state 1.6e-5 on (1, 4)
+TRAINER_TOL = {"loss": 1e-5, "grad_norm": 2e-5, "state": 1e-4}
+
+
+def test_production_trainer_checkpoint_restores_onto_4x1_1x4_and_no_mesh(
+        dist_runs):
+    """A Trainer on the production layout draws its state leaf by leaf
+    on (2, 2), bit for bit the one-process init, takes one step and
+    checkpoints it; a Trainer on (4, 1), on (1, 4) and one without a mesh
+    restores that checkpoint bit for bit, and the next step on each mesh
+    equals the one without a mesh (TRAINER_TOL)."""
+    _, out = dist_runs
+    line = next(ln for ln in out.splitlines() if ln.startswith("trainer "))
+    r = json.loads(line[len("trainer "):])
+    assert r["trained_on"] == {"data": 2, "model": 2}
+    assert r["placements"] == ["Replicate", "Shard"]
+    assert r["init_bit_equal"] and r["none_bit_equal"]
+    for mp, shape in ((1, {"data": 4, "model": 1}),
+                      (4, {"data": 1, "model": 4})):
+        m = r[f"mesh_{mp}"]
+        assert m["shape"] == shape and m["bit_equal"] and m["step"] == 2
+        for k, tol in TRAINER_TOL.items():
+            assert m["err"][k] <= tol, (mp, k, m["err"])
+
+
 # ---------------------------------------------------------------------------
 # train steps over 2 ranks: data parallel (dense) and expert parallel (moe)
 # ---------------------------------------------------------------------------
@@ -514,11 +639,18 @@ for name, arch, mp, micro, kw in {cases!r}:
     cfg = smoke_config(arch).replace(**kw)
     mesh = build_mesh(model_parallel=mp, device="cpu")
     step = make_train_step(cfg, opt, micro, mesh=mesh)
-    whole = restore(d + "/in", train_state_shapes(cfg, opt), device="cpu")
-    state = local_state(whole, step.shardings)
+    shapes = train_state_shapes(cfg, opt)
+    # the production layout's state is DTensors; moe_ep's, local slices
+    if step.production:
+        state = restore(d + "/in", shapes, shardings=step.shardings)
+    else:
+        state = local_state(restore(d + "/in", shapes, device="cpu"),
+                            step.shardings)
     z = np.load(d + "/batch.npz")
     new, metrics = step(state, {{k: z[k] for k in z.files}})
-    save(d + "/out", 4, global_state(new, step.shardings))
+    print(name, step.layout, flush=True)
+    save(d + "/out", 4, new if step.production
+         else global_state(new, step.shardings))
     if RANK == 0:
         np.savez(d + "/metrics.npz",
                  **{{k: v.numpy() for k, v in metrics.items()}})
@@ -549,8 +681,10 @@ def step_runs(tmp_path_factory):
             want[name] = jax.jit(JS.make_train_step(jcfg, jo, micro))(
                 jax.tree.map(jax.numpy.asarray, jstate), batch)
     finally:
-        _wait_all(procs, 300)
-    return d, want
+        out = _wait_all(procs, 300)[0]
+    layouts = dict(ln.split() for ln in out.splitlines()
+                   if ln.split()[:1] and ln.split()[0] in want)
+    return d, want, layouts
 
 
 @pytest.mark.parametrize("name", [c[0] for c in STEP_CASES])
@@ -558,11 +692,14 @@ def test_two_rank_step_matches_one_device_repro(step_runs, name):
     """One step over 2 ranks against repro's step on one device over the
     whole batch: (2, 1) data parallel with the halves' mask counts 57
     and 5 (a mean of per-rank means would be far off), also over 2
-    microbatches; (1, 2) with olmoe's 4 experts split 2 and 2 (moe_ep at
-    capacity 8.0, where no pair drops), also with every layer
+    microbatches, on the production layout (deepseek's state FSDP over
+    the 2 data ranks); (1, 2) with olmoe's 4 experts split 2 and 2
+    (moe_ep at capacity 8.0, where no pair drops), also with every layer
     checkpointed.  loss, grad_norm, tokens, aux,
     lr and every new leaf within 2e-5 (float32, summation order)."""
-    d, want = step_runs
+    d, want, layouts = step_runs
+    assert layouts[name] == ("moe_ep" if name.startswith("expert")
+                             else "production")
     jnew, jm = want[name]
     got = np.load(d / name / "metrics.npz")
     for key in ("loss", "grad_norm", "tokens", "aux", "lr"):
@@ -572,6 +709,180 @@ def test_two_rank_step_matches_one_device_repro(step_runs, name):
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jnew)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5,
                                    atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the production layout on a 2 x 2 mesh: scripts/production_layout_2x2.py
+# ---------------------------------------------------------------------------
+
+def _layout_script():
+    spec = importlib.util.spec_from_file_location(
+        "production_layout_2x2",
+        os.path.join(ROOT, "scripts", "production_layout_2x2.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PL = _layout_script()
+PROD_CASES = [c[0] for c in PL.CASES]
+# against repro's jitted one-device step: float32, the sharded step's
+# summation order on top of the port's own distance from repro (which
+# tests/test_torch_train_families.py holds at rtol 2e-5 for the state and
+# 1e-3 for encdec's grad_norm).  Measured here (torch 2.13.0+cpu),
+# largest over the cases: loss 1.5e-7 relative, grad_norm 5.9e-6
+# (internvl2; whisper 1.8e-5), every new leaf within 1.2e-6 + 1.2e-6 |x|
+PROD_METRIC_RTOL = {"loss": 2e-6, "aux": 2e-6, "tokens": 0.0, "lr": 1e-6,
+                    "grad_norm": 2e-5}
+PROD_GRAD_NORM_RTOL = {"whisper": 1e-3}
+
+
+@pytest.fixture(scope="module")
+def production_runs(tmp_path_factory):
+    """scripts/production_layout_2x2.py over 4 gloo ranks from repro's
+    states (non-zero moments, step 3) and the unequal-mask batches, and
+    repro's jitted one-device step on each meanwhile.  Returns the
+    directory, the script's report and repro's {case: (state, metrics)}."""
+    d = tmp_path_factory.mktemp("production")
+    inputs = {}
+    for name, arch, micro, kw in PL.CASES:
+        jcfg = j_smoke_config(arch)
+        jo = JO.OptConfig(**PL.OPT_KW, **kw)
+        batch = PL.case_batch(t_smoke_config(arch))
+        inputs[name] = (jcfg, jo, micro, _jstate(jcfg, jo), batch)
+        RC.save(str(d / name / "in"), 3, inputs[name][3])
+        np.savez(d / name / "batch.npz", **batch)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "production_layout_2x2.py"),
+         "--out", str(d)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": SRC})
+    want = {}
+    try:
+        for name, (jcfg, jo, micro, jstate, batch) in inputs.items():
+            want[name] = jax.jit(JS.make_train_step(jcfg, jo, micro))(
+                jax.tree.map(jax.numpy.asarray, jstate), batch)
+    finally:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            pytest.fail("scripts/production_layout_2x2.py ran past 600 s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    assert lines, err[-4000:]
+    return d, json.loads(lines[-1]), want
+
+
+@pytest.mark.parametrize("name", PROD_CASES)
+def test_production_layout_step_matches_one_device_repro(production_runs,
+                                                         name):
+    """One step of the production layout over 2 x 2 gloo ranks (every
+    leaf a DTensor, FSDP over "data", tensor parallel over "model")
+    against repro's jitted step on one device over the whole batch
+    (mask counts 30, 27, 5 and 0): the metrics (PROD_METRIC_RTOL) and
+    every new leaf within 2e-5 + 2e-5 |x|."""
+    d, _, want = production_runs
+    jnew, jm = want[name]
+    got = np.load(d / name / "metrics.npz")
+    for key, rtol in PROD_METRIC_RTOL.items():
+        if key == "grad_norm":
+            rtol = PROD_GRAD_NORM_RTOL.get(name, rtol)
+        np.testing.assert_allclose(got[key], np.asarray(jm[key]),
+                                   rtol=rtol, atol=1e-7, err_msg=key)
+    back = RC.restore(str(d / name / "out"), jnew, 4)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jnew)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("name", PROD_CASES)
+def test_production_layout_shards_both_axes_and_matches_the_dry_run(
+        production_runs, name):
+    """On every rank at least one leaf of the new state is sharded over
+    "data" and one over "model", and the rank's local state bytes equal
+    launch/dryrun.py::operand_layout's for the mesh; the step is within
+    the script's limits of the one-process step."""
+    _, report, _ = production_runs
+    r = report["cases"][name]
+    assert len(r["sharded_data_model_by_rank"]) == PL.WORLD
+    for data, model in r["sharded_data_model_by_rank"]:
+        assert data > 0 and model > 0
+    assert r["local_bytes_by_rank"] == r["dryrun_bytes_by_rank"]
+    for k, tol in PL.tol(name).items():
+        assert r["err"][k] <= tol, (k, r["err"])
+    assert r["within_tol"]
+
+
+def test_production_layout_script_reports_ok(production_runs):
+    _, report, _ = production_runs
+    assert report["ok"] and report["exit_codes"] == [0] * PL.WORLD
+    assert report["torch"] == torch.__version__
+
+
+def test_ssd_chunk_states_equal_the_three_operand_einsum():
+    """models/ssm.py's chunk states, two einsums for DTensor's sake,
+    equal the three-operand "bckn,bckh,bckhp->bchpn" it replaced: bit
+    for bit where opt_einsum picks the contraction order (as here),
+    within float32 rounding otherwise."""
+    from repro_torch.models import ssm as TSSM
+    g = torch.Generator().manual_seed(0)
+    bsz, nc, q, n, h, p = 2, 4, 16, 8, 6, 5
+    b_c = torch.randn(bsz, nc, q, n, generator=g)
+    decay = torch.rand(bsz, nc, q, h, generator=g)
+    xdt = torch.randn(bsz, nc, q, h, p, generator=g)
+    got = torch.einsum("bckn,bckhp->bchpn", b_c, xdt * decay[..., None])
+    want = torch.einsum("bckn,bckh,bckhp->bchpn", b_c, decay, xdt)
+    if torch.backends.opt_einsum.is_available():
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # and the function computes its chunk states that way: its final
+    # state over one chunk is the chunk state itself
+    cfg = types.SimpleNamespace(ssm_chunk=q)
+    xh = torch.randn(bsz, q, h, p, generator=g)
+    dt = torch.rand(bsz, q, h, generator=g)
+    bb = torch.randn(bsz, q, n, generator=g)
+    cc = torch.randn(bsz, q, n, generator=g)
+    a_log = -torch.rand(h, generator=g)
+    _, state = TSSM.ssd_chunked(cfg, xh, dt, bb, cc, a_log)
+    cum = torch.cumsum((dt * a_log).reshape(bsz, 1, q, h), dim=2)
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    xdt_c = (xh.float() * dt[..., None]).reshape(bsz, 1, q, h, p)
+    old = torch.einsum("bckn,bckh,bckhp->bchpn",
+                       bb.reshape(bsz, 1, q, n), to_end, xdt_c)[:, 0]
+    if torch.backends.opt_einsum.is_available():
+        assert torch.equal(state, old)
+    else:
+        torch.testing.assert_close(state, old, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_conv_and_embed_are_their_old_forms(dtype):
+    """models/ssm.py's causal conv, its leading zeros by cat (torch
+    2.11's DTensor cannot plan F.pad), equals the F.pad form bit for
+    bit; layers.embed of plain tokens is the indexed read, its gradient
+    included."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as TL
+    from repro_torch.models import ssm as TSSM
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 40, 24, generator=g).to(dtype)
+    k = torch.randn(4, 24, generator=g)
+    pad = F.pad(x, (0, 0, 3, 0))
+    old = torch.zeros_like(x)
+    for i in range(4):
+        old = old + pad[:, i:i + 40] * k[i].to(dtype)
+    assert torch.equal(TSSM._causal_conv(x, k), old)
+    table = torch.randn(64, 8, generator=g).requires_grad_()
+    tok = torch.randint(0, 64, (3, 40), generator=g)
+    got = TL.embed({"tok": table}, tok, dtype)
+    (gw,) = torch.autograd.grad(got.float().sum(), table)
+    want = table[tok.long()].to(dtype)
+    (ww,) = torch.autograd.grad(want.float().sum(), table)
+    assert torch.equal(got, want) and torch.equal(gw, ww)
 
 
 # ---------------------------------------------------------------------------
@@ -602,3 +913,68 @@ def test_launch_train_model_parallel_two_processes(tmp_path):
     assert int(back["step"]) == 3
     w = back["params"]["layers"]["moe"]["w_gate"]
     assert w.shape == (2, 4, 64, 128) and np.isfinite(np.asarray(w)).all()
+
+
+_LAUNCH_SEEDED = """
+import sys
+import numpy as np
+sys.path.insert(0, {src!r})
+import repro_torch.launch.train as LT
+
+
+class Seeded:
+    # the batches the test wrote, in place of the LM data plane
+    def __iter__(self):
+        for i in range({n}):
+            z = np.load({d!r} + f"/batch_{{i}}.npz")
+            yield {{k: z[k] for k in z.files}}
+
+    def close(self):
+        pass
+
+
+LT.feed_source = lambda cfg, dev, seq, batch: Seeded()
+sys.exit(LT.main(sys.argv[1:]))
+"""
+
+
+def test_launch_train_production_layout_two_processes(tmp_path):
+    """``launch/train.py --model-parallel 2 --device cpu --smoke`` on
+    deepseek over two processes: a (1, 2) mesh on the production layout
+    (``layout=production``), resumed from a checkpoint repro wrote at
+    step 3, two steps over batches the test wrote (in place of the data
+    plane, rank 0 feeding both); each checkpoint it writes is repro's
+    one-device step from the one before, within 2e-5 + 2e-5 |x|."""
+    jcfg = j_smoke_config("deepseek-coder-33b")
+    jo = JO.OptConfig(lr=3e-4, warmup_steps=2, total_steps=5)
+    state = _jstate(jcfg, jo)
+    ck = tmp_path / "ckpt"
+    RC.save(str(ck), 3, state)
+    batches = [_unequal_batch(jcfg, seed=s) for s in (1, 2)]
+    for i, b in enumerate(batches):
+        np.savez(tmp_path / f"batch_{i}.npz", **b)
+    script = tmp_path / "launch.py"
+    script.write_text(_LAUNCH_SEEDED.format(src=SRC, n=len(batches),
+                                            d=str(tmp_path)))
+    cmd = [sys.executable, str(script), "--arch", "deepseek-coder-33b",
+           "--smoke", "--steps", "5", "--seq-len", "32", "--batch", "4",
+           "--device", "cpu", "--model-parallel", "2", "--init-method",
+           f"file://{tmp_path}/store", "--ckpt-dir", str(ck),
+           "--ckpt-every", "1"]
+    procs = [subprocess.Popen(
+        cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": SRC, "RANK": str(r),
+                        "WORLD_SIZE": "2"}) for r in range(2)]
+    out = _wait_all(procs, 240)[0]
+    assert "mesh={'data': 1, 'model': 2} moe_ep=False layout=production" \
+        in out, out
+    assert "step     5" in out, out
+    step = jax.jit(JS.make_train_step(jcfg, jo))
+    cur = jax.tree.map(jax.numpy.asarray, state)
+    for n, b in zip((4, 5), batches):
+        cur, _ = step(cur, b)
+        back = RC.restore(str(ck), cur, n)
+        for a, w in zip(jax.tree.leaves(back), jax.tree.leaves(cur)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(w),
+                                       rtol=2e-5, atol=2e-5)
+        cur = back          # the next step from what the port wrote

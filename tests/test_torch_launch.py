@@ -330,8 +330,10 @@ def test_cell_argument_bytes_and_fallbacks_match_repro(arch, shape_name,
     rules = TD.rules_for(shape, arch)
     assert rules == JD.rules_for(jshape, arch)
     assert TD.opt_for(cfg).__dict__ == JD.opt_for(jcfg).__dict__
-    _, shapes, axes = TD.build_cell(cfg, shape)
-    _, got_b, got_f = TD.operand_layout(shapes, axes, _t_mesh(multi), rules)
+    # the operands as the dry run places them: a dense, ssm, vlm or
+    # encdec training cell's state by the trainer's own train_shardings
+    _, _, _, got_b, got_f = TD.cell_layout(cfg, shape, _t_mesh(multi),
+                                           rules)
     want_b, want_f = _j_layout(jcfg, jshape, multi, rules)
     assert got_b == want_b
     assert sorted(got_f) == sorted(want_f)
