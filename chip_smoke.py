@@ -163,12 +163,26 @@ Phases, each fatal on failure:
      host's CPU (4 gloo ranks, the card machine's torch): the 2 x 2
      production step held to one process at the tests' limits, started
      before (a) and waited for before (b).
-Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17, 18) runs
-with the launch counts set to 0 just before it and read just after; the
-kernels line gives each kernel's launches on the paths (feed, read_path,
-serve, train, feed_durable, serve_moe, serve_ssm, serve_vlm,
+ 19. the MoE and hybrid families on the production layout (experts over
+     "model" as DTensors, MoE routing under DTensor), over an NCCL group
+     of one rank and a (1, 1) mesh, TF32 on: (a) olmoe-1b-7b at full
+     width, phase 15's 4 of 16 layers, and (b) jamba-1.5-large-398b at
+     smoke widths, each 3 Trainer steps of 2 x 4,096 tokens from the LM
+     data plane beside the plain Trainer on the same seed and batches:
+     losses, gradient norms, token counts and the routed pairs dropped
+     for capacity bit-equal, the state's bytes equal
+     launch/dryrun.py::operand_layout's, each run's step time and (a)'s
+     device busy share; (c) scripts/production_layout_2x2.py --cases
+     olmoe,jamba on the host's CPU (the card machine's torch), started
+     before (a): routing equal to one process, some pairs dropped, every
+     reading within the script's limits.
+Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17, 18, 19)
+runs with the launch counts set to 0 just before it and read just after;
+the kernels line gives each kernel's launches on the paths (feed,
+read_path, serve, train, feed_durable, serve_moe, serve_ssm, serve_vlm,
 serve_encdec, train_moe, train_ssm, train_vlm, train_encdec,
-train_distributed, launch, train_production) and their sum.
+train_distributed, launch, train_production, train_moe_production) and
+their sum.
 Prints one JSON line of kernels, then the device JSON as the last line.
 Measurements also go to <--out>/chip_smoke.json (default smoke_out/).
 """
@@ -2775,7 +2789,9 @@ def moe_drop_tally():
         order, keep, slot = orig(idx, e, cap)
         part = tally["prefill" if idx.shape[1] > SERVE_SLOTS else "decode"]
         part[0] += keep.numel()
-        part[1].append(keep.sum())
+        kept = keep.sum()
+        part[1].append(kept.full_tensor() if hasattr(kept, "full_tensor")
+                       else kept)
         return order, keep, slot
     M.expert_slots = counted
     try:
@@ -3791,10 +3807,11 @@ PROD_TIMED = 3               # (b)'s timed steps at phase 9's cell
 PROD_CHILD_TIMEOUT = 600     # (c), the 2 x 2 gloo script on the host
 
 
-def production_2x2_start(out_dir):
-    """(c) scripts/production_layout_2x2.py on the host's CPU, started in
-    the background: its stdout and stderr go to a log in ``out_dir``."""
-    d = os.path.join(out_dir, "production_2x2")
+def production_2x2_start(out_dir, cases=None, name="production_2x2"):
+    """(c) scripts/production_layout_2x2.py (its default cases, or
+    ``cases``) on the host's CPU, started in the background: its stdout
+    and stderr go to a log in ``out_dir``/``name``."""
+    d = os.path.join(out_dir, name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     log_fh = open(os.path.join(d, "log.txt"), "w")
@@ -3803,12 +3820,12 @@ def production_2x2_start(out_dir):
     proc = subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "scripts",
                                       "production_layout_2x2.py"),
-         "--out", d], stdout=log_fh, stderr=subprocess.STDOUT, env=env,
-        cwd=ROOT)
+         "--out", d] + (["--cases", ",".join(cases)] if cases else []),
+        stdout=log_fh, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
     return proc, log_fh, d
 
 
-def production_2x2_finish(proc, log_fh, d) -> dict:
+def production_2x2_finish(proc, log_fh, d, tag="production (c)") -> dict:
     """(c) wait for the script and read its report (the last JSON line):
     every case within its limits of the one-process step."""
     try:
@@ -3827,7 +3844,7 @@ def production_2x2_finish(proc, log_fh, d) -> dict:
     report = json.loads(lines[-1])
     worst = {name: max(c["err"].items(), key=lambda kv: kv[1])
              for name, c in report["cases"].items()}
-    log(f"production (c): the 2 x 2 gloo script on the host's CPU, torch "
+    log(f"{tag}: the 2 x 2 gloo script on the host's CPU, torch "
         f"{report['torch']}: ok {report['ok']}; worst reading by case "
         + ", ".join(f"{n} {k} {v:.3g}" for n, (k, v) in worst.items())
         + "; local state bytes = the dry run's on every rank: "
@@ -4017,6 +4034,171 @@ def production_phase(dev, store, out_dir, phase9, launch) -> dict:
         child = None
         res["gloo_2x2_wait_s"] = time.perf_counter() - t0
         res["cost"] = production_cost_check(dev, mesh, phase9, launch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.destroy_process_group()
+        if child is not None:
+            child[0].kill()
+            child[0].wait()
+            child[1].close()
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE and hybrid families on the production layout
+# ---------------------------------------------------------------------------
+
+MOE_PROD_STEPS = 3
+# (b) jamba at smoke widths (one period at full width is 90.3 GB of bf16)
+# over phase 15's 2 x 4,096 tokens: more than 4,096 a step, so every row
+# routes on its own, as olmoe's in (a)
+MOE_PROD_JAMBA = {"arch": "jamba-1.5-large-398b", "seq": 4096, "batch": 2}
+MOE_PROD_2X2_CASES = ("olmoe", "jamba")    # (c), production_layout_2x2.py
+
+
+def moe_production_run(dev, store, mesh, cfg, seq, batch, tag,
+                       profile=True) -> dict:
+    """(a), (b): the Trainer on the production layout of the (1, 1) mesh
+    and the plain Trainer, same seed and the same batches from the LM
+    data plane, MOE_PROD_STEPS steps each; (loss, grad_norm, tokens) by
+    step and the routed pairs dropped for capacity must be bit-equal.
+    Each run's step time (median of the steps after the first) and, with
+    ``profile``, device busy share (one profiled step more: 20-75 s of
+    profiler on the card, so (b) goes without); the production state's
+    argument bytes against ``launch/dryrun.py::operand_layout``'s."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.dryrun import operand_layout
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.train import OptConfig
+    from repro_torch.train.steps import train_state_axes, train_state_shapes
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    opt = OptConfig(lr=FAMILY_TRAIN_LR, warmup_steps=1,
+                    total_steps=MOE_PROD_STEPS + 1)
+    t0 = time.perf_counter()
+    source = train_source(store, dev, cfg, seq=seq, batch=batch)
+    try:
+        it = iter(source)
+        batches = [next(it) for _ in range(MOE_PROD_STEPS + 1)]
+    finally:
+        source.close()
+    source_s = time.perf_counter() - t0
+    runs = {}
+    for name, m in (("production", mesh), ("plain", None)):
+        torch.cuda.reset_peak_memory_stats()
+        with moe_drop_tally() as tally:
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, opt, TrainerConfig(
+                steps=MOE_PROD_STEPS, log_every=1, seed=TRAIN_SEED),
+                device=dev, mesh=m)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hist = trainer.run(iter(batches[:MOE_PROD_STEPS]))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        run = {"hist": [[h[k] for k in ("loss", "grad_norm", "tokens")]
+                        for h in hist],
+               "init_s": t1 - t0, "run_s": t2 - t1,
+               "step_times_s": [t["data_wait_s"] + t["grad_s"]
+                                + t["update_s"]
+                                for t in trainer.step_times],
+               "drops": drop_shares(tally)["all"],
+               "layout": trainer.step_fn.layout,
+               "step_s": statistics.median(
+                   t["data_wait_s"] + t["grad_s"] + t["update_s"]
+                   for t in trainer.step_times[1:]),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if m is not None:
+            leaves = tree_flatten(trainer.state)[0]
+            run["dtensor_leaves"] = all(isinstance(x, DTensor)
+                                        for x in leaves)
+            run["arg_bytes"] = _local_bytes(trainer.state)
+            run["dry_arg_bytes"] = operand_layout(
+                (train_state_shapes(cfg, opt),),
+                (train_state_axes(cfg, opt),), m, state=(cfg, opt))[1]
+            del leaves
+        if profile:
+            step, state = trainer.step_fn, trainer.state
+            t0 = time.perf_counter()
+            prof, prof_ms = profiled_seen(lambda: step(state, batches[-1]))
+            run["busy_share"] = kernel_device_ms(prof) / prof_ms
+            run["profile_s"] = time.perf_counter() - t0
+            del prof, step, state
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = run
+    prod, plain = runs["production"], runs["plain"]
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "seq": seq, "batch": batch,
+           "source_s": source_s, **runs,
+           "bit_equal": prod["hist"] == plain["hist"]
+           and prod["drops"] == plain["drops"]}
+    log(f"{tag}: {cfg.name} (d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, {cfg.num_experts} experts, {cfg.experts_per_token} a "
+        f"token), {batch} x {seq} tokens from the LM data plane, "
+        f"{MOE_PROD_STEPS} steps on the {prod['layout']} layout of a (1, 1)"
+        f" NCCL mesh against the plain Trainer: (loss, grad_norm, tokens) "
+        f"by step {prod['hist']} vs {plain['hist']}, dropped pairs "
+        f"{prod['drops']['dropped']} of {prod['drops']['pairs']} vs "
+        f"{plain['drops']['dropped']} of {plain['drops']['pairs']}: "
+        f"bit-equal {res['bit_equal']}; argument bytes {prod['arg_bytes']:,}"
+        f" (dry run {prod['dry_arg_bytes']:,}); step {prod['step_s']:.4f} s"
+        f" vs {plain['step_s']:.4f} s"
+        + (f", busy {prod['busy_share']:.4f} vs {plain['busy_share']:.4f}"
+           if profile else "")
+        + f"; peak {prod['peak_memory_bytes'] / 2**30:.2f} vs "
+        f"{plain['peak_memory_bytes'] / 2**30:.2f} GiB [{nvidia_smi_line()}]")
+    if (prod["layout"] != "production" or not prod["dtensor_leaves"]
+            or not res["bit_equal"] or len(prod["hist"]) != MOE_PROD_STEPS
+            or prod["arg_bytes"] != prod["dry_arg_bytes"]
+            or not np.isfinite(prod["hist"]).all()):
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def moe_production_phase(dev, store, out_dir) -> dict:
+    """Phase 19: (c) the 2 x 2 gloo script's MoE cases started on the
+    host's CPU, then (a) olmoe at full width, phase 15's 4 of 16 layers,
+    and (b) jamba at smoke widths on the production layout of a (1, 1)
+    mesh over an NCCL group of one rank (a file store), each beside the
+    plain Trainer, TF32 on as phase 18; then (c)'s report."""
+    import torch.distributed as dist
+    from repro_torch.configs import smoke_config
+    from repro_torch.runtime.elastic import build_mesh
+    root = os.path.abspath(os.path.join(out_dir, "moe_production"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    child = production_2x2_start(out_dir, MOE_PROD_2X2_CASES,
+                                 "moe_production_2x2")
+    res = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method="file://" + os.path.join(root, "pg"),
+                            rank=0, world_size=1)
+    try:
+        mesh = build_mesh(model_parallel=1, device=dev)
+        spec = FAMILY_TRAIN["moe"]
+        res["olmoe"] = moe_production_run(
+            dev, store, mesh, family_train_cfg("moe"), spec["seq"],
+            spec["batch"], "moe production (a)")
+        res["jamba"] = moe_production_run(
+            dev, store, mesh, smoke_config(MOE_PROD_JAMBA["arch"]),
+            MOE_PROD_JAMBA["seq"], MOE_PROD_JAMBA["batch"],
+            "moe production (b)", profile=False)
+        t0 = time.perf_counter()
+        report = production_2x2_finish(*child, tag="moe production (c)")
+        child = None
+        res["gloo_2x2"] = report
+        res["gloo_2x2_wait_s"] = time.perf_counter() - t0
+        log("moe production (c): routing equal to one process, dropped "
+            "pairs of routed: " + ", ".join(
+                f"{n} {c['routing_equal']} {c['dropped']} of {c['pairs']}"
+                for n, c in report["cases"].items()))
+        if not all(c["routing_equal"] and c["dropped"] > 0
+                   for c in report["cases"].values()):
+            raise AssertionError(f"moe production (c): {report}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         dist.destroy_process_group()
@@ -4276,6 +4458,22 @@ def main() -> int:
                              f"{prod_counts} or took paths {prod_paths}")
     phase18_s = time.perf_counter() - t18
     log(f"phase 18: {phase18_s:.1f} s [{smi}]")
+    # phase 19, the MoE and hybrid families on the production layout, from
+    # counts and path stats of 0: MoE routing has no hand kernel, and
+    # training attention is the plain chunked version
+    t19 = time.perf_counter()
+    reset_launch_counts()
+    reset_path_stats()
+    moe_production = moe_production_phase(dev, store, out_dir)
+    moe_prod_counts = launch_counts()
+    moe_prod_paths = path_stats()
+    if any(moe_prod_counts.values()) or set(moe_prod_paths) - {
+            ("flash_attention", "plain_on_card")}:
+        raise AssertionError(f"the MoE production layout launched "
+                             f"{moe_prod_counts} or took paths "
+                             f"{moe_prod_paths}")
+    phase19_s = time.perf_counter() - t19
+    log(f"phase 19: {phase19_s:.1f} s [{smi}]")
     names = {"sorted_probe": "hash_probe", "radius_join": "spatial_join",
              "segment_sum": "segment_reduce", "segment_topk": "segment_topk",
              "flash_attention": "flash_attention"}
@@ -4291,7 +4489,9 @@ def main() -> int:
                       for fam, c in train_counts.items()},
                    "train_distributed": dist_counts[names[k["name"]]],
                    "launch": launch_counts_17[names[k["name"]]],
-                   "train_production": prod_counts[names[k["name"]]]}
+                   "train_production": prod_counts[names[k["name"]]],
+                   "train_moe_production": moe_prod_counts[
+                       names[k["name"]]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
     keys = ("name", "route", "source", "replaces", "launches",
@@ -4307,8 +4507,10 @@ def main() -> int:
                    "durable": durable, "train_families": trains,
                    "q5_tf32": q5_tf32, "distributed": distributed,
                    "launch": launch, "production": production,
+                   "moe_production": moe_production,
                    "phase_seconds": {"15": phase15_s, "16": phase16_s,
-                                     "17": phase17_s, "18": phase18_s}},
+                                     "17": phase17_s, "18": phase18_s,
+                                     "19": phase19_s}},
                   fh, indent=1)
     log(smi)
     log(json.dumps(line))

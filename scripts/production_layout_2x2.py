@@ -1,21 +1,30 @@
 """The trainer's production layout on a 2 x 2 mesh of gloo processes on
 the CPU, held to the same step in one process.
 
-    PYTHONPATH=src python scripts/production_layout_2x2.py [--out DIR]
+    PYTHONPATH=src python scripts/production_layout_2x2.py [--out DIR] \
+        [--cases olmoe,jamba]
 
 Starts 4 ranks of this script (gloo over a file store in DIR, no port).
-For each of CASES (smoke widths: deepseek-coder-33b, also over 2
-microbatches; mamba2-130m with the factored second moment; internvl2-2b;
-whisper-medium) every rank reads one train state and one batch from
+For each case (smoke widths; by default CASES: deepseek-coder-33b, also
+over 2 microbatches; mamba2-130m with the factored second moment;
+internvl2-2b; whisper-medium; ``--cases`` names others, MOE_CASES
+among them: olmoe-1b-7b over 4 rows of 1,040 tokens, so each row routes
+on its own, and jamba-1.5-large-398b over 4 rows of 32, routed as one
+group, every period checkpointed as its published config does) every
+rank reads one train state and one batch from
 DIR/<case>/in and DIR/<case>/batch.npz, restores the state onto
 ``train_shardings`` of a (2, 2) ("data", "model") mesh and runs one
 ``TrainStep`` on it, then the same step in one process without a mesh.
 Where DIR holds no inputs they are made from seeds first: the port's
 init with non-zero moments at step 3, and a batch of 4 rows whose mask
-counts are 30, 27, 5 and 0 (a mean of per-rank means would be far off).
-The production step's new state is saved to DIR/<case>/out and its
-metrics to DIR/<case>/metrics.npz, so a caller can hold them to
-another reference too.
+counts are 30, 27, 5 and 0 of 32 (a mean of per-rank means would be
+far off; a longer row keeps as large a share).  An MoE case's last two
+rows are one token over and over, so that its experts overflow at the
+config's own capacity factor.  The production step's new state is
+saved to DIR/<case>/out and its metrics to DIR/<case>/metrics.npz, so a
+caller can hold them to another reference too; an MoE case also saves the
+router logits of every MoE call of the production step (whole, the
+forward's first) to DIR/<case>/router.npz.
 
 Rank 0 prints, as its last line, one JSON object: ``torch`` (the
 version: DTensor's strategies differ between versions), and per case
@@ -26,10 +35,13 @@ over "data" and over "model"; every rank's local state bytes beside
 ``launch/dryrun.py::operand_layout``'s for the mesh; every rank's
 matmul FLOPs of the step (``launch/opcost.OpCounter`` below DTensor)
 beside the one-process step's, which an ideal split would divide by 4
-(read, not held to anything); and ``ok``.  The
-exit code is 0 when every reading is within its case's
-limits (``tol``), every rank shards a
-leaf over each axis and every rank's bytes are the dry run's.
+(read, not held to anything); for an MoE case whether every layer's
+expert choices and kept pairs equal the one-process step's (integers,
+exactly) and the pairs dropped for capacity out of those routed (over
+every MoE call of the step, a checkpointed layer's recompute included);
+and ``ok``.  The exit code is 0 when every reading is within its case's
+limits (``tol``), every rank shards a leaf over each axis, every rank's
+bytes are the dry run's and an MoE case routes as one process does.
 """
 
 from __future__ import annotations
@@ -58,6 +70,26 @@ CASES = [
     ("internvl2", "internvl2-2b", 1, {}),
     ("whisper", "whisper-medium", 1, {}),
 ]
+MOE_CASES = [
+    ("olmoe", "olmoe-1b-7b", 1, {}),
+    ("jamba", "jamba-1.5-large-398b", 1, {}),
+]
+ALL_CASES = {c[0]: c for c in CASES + MOE_CASES}
+# positions a row: olmoe's 4 x 1,040 tokens are above the 4,096 that
+# one routing group takes, so each row routes on its own
+CASE_SEQ = {"olmoe": 1040}
+# config changes of a case: jamba checkpoints every period, its
+# published remat policy, so its MoE layers recompute under DTensor
+CASE_CFG = {"jamba": {"remat": "full"}}
+
+
+def case_config(name: str):
+    """The smoke config of case ``name``, with its CASE_CFG changes."""
+    from repro_torch.configs import smoke_config
+    return smoke_config(ALL_CASES[name][1]).replace(
+        **CASE_CFG.get(name, {}))
+
+
 OPT_KW = dict(lr=1e-3, warmup_steps=2, total_steps=50, weight_decay=0.01)
 # float32 at smoke widths; the sharded step sums in other orders (the
 # loss's mask count and cross-entropy over the data ranks, the row-
@@ -72,21 +104,33 @@ OPT_KW = dict(lr=1e-3, warmup_steps=2, total_steps=50, weight_decay=0.01)
 # none alone), so it has its own limits.
 TOL = {"loss": 1e-5, "aux": 1e-5, "tokens": 0.0, "grad_norm": 2e-5,
        "lr": 0.0, "params": 1e-6, "m": 2e-5, "v": 2e-5}
-CASE_TOL = {"whisper": {"grad_norm": 2e-4, "m": 1e-3, "v": 5e-4}}
+# The MoE cases' last two rows are one token, so its row of the
+# embedding's gradient sums 64 (jamba) or 2,080 (olmoe) terms that
+# cancel, and two float32 summation orders part there by up to ~1e-4 of
+# the largest |m|: the production step read 4.1e-6 (olmoe) and 3.5e-5
+# (jamba) from one process (torch 2.13.0+cpu), and
+# tests/test_torch_moe_layout.py holds it to repro's jitted step within
+# the same limit.
+CASE_TOL = {"whisper": {"grad_norm": 2e-4, "m": 1e-3, "v": 5e-4},
+            "olmoe": {"m": 2e-4}, "jamba": {"m": 2e-4}}
 
 
 def tol(name: str) -> dict:
     return {**TOL, **CASE_TOL.get(name, {})}
 
 
-def case_batch(cfg, seed: int = 0) -> dict:
-    """4 rows of 32 positions, masks keeping 30, 27, 5 and 0 tokens;
-    the vlm's patch rows N(0, 0.02²), the encdec's frames N(0, 1)."""
+def case_batch(cfg, seed: int = 0, seq: int = 32) -> dict:
+    """4 rows of ``seq`` positions, masks keeping 30, 27, 5 and 0 of
+    every 32; the vlm's patch rows N(0, 0.02²), the encdec's frames
+    N(0, 1); with experts, the last two rows one token over and
+    over."""
     from repro_torch.models import api
     rng = np.random.default_rng(seed)
-    t = api.token_len(cfg, 32)
+    t = api.token_len(cfg, seq)
     tok = rng.integers(16, cfg.vocab_size, (4, t)).astype(np.int32)
-    keep = np.array([30, 27, 5, 0])
+    if cfg.num_experts:
+        tok[2:] = tok[3, 0]
+    keep = np.array([30, 27, 5, 0]) * seq // 32
     batch = {"tokens": tok, "targets": np.roll(tok, -1, 1),
              "loss_mask": (np.arange(t)[None] < keep[:, None])
              .astype(np.float32)}
@@ -98,7 +142,7 @@ def case_batch(cfg, seed: int = 0) -> dict:
     return batch
 
 
-def write_inputs(d: str, cfg, opt, seed: int = 0) -> None:
+def write_inputs(d: str, cfg, opt, seed: int = 0, seq: int = 32) -> None:
     """The seeded state (non-zero moments, step 3) and batch of a case."""
     import torch
 
@@ -114,10 +158,48 @@ def write_inputs(d: str, cfg, opt, seed: int = 0) -> None:
             v.normal_(0.0, 1e-3, generator=gen).abs_().add_(1e-6)
     state["step"].fill_(3)
     save(os.path.join(d, "in"), 3, state)
-    np.savez(os.path.join(d, "batch.npz"), **case_batch(cfg, seed))
+    np.savez(os.path.join(d, "batch.npz"), **case_batch(cfg, seed, seq))
 
 
-def rank_main(rank: int, out: str) -> int:
+class RoutingTape:
+    """Every MoE call's router logits, expert choices and kept pairs,
+    whole (a DTensor's ``full_tensor``), while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.logits, self.idx, self.keep = [], [], []
+        self._orig = (M._route, M.expert_slots)
+        route, slots = self._orig
+
+        def whole(x):
+            x = x.detach()
+            return (x.full_tensor() if hasattr(x, "full_tensor")
+                    else x).numpy()
+
+        def taped_route(logits, k):
+            w, idx = route(logits, k)
+            self.logits.append(whole(logits))
+            self.idx.append(whole(idx))
+            return w, idx
+
+        def taped_slots(idx, e, cap):
+            out = slots(idx, e, cap)
+            self.keep.append(whole(out[1]))
+            return out
+        M._route, M.expert_slots = taped_route, taped_slots
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M._route, M.expert_slots = self._orig
+
+    def same_routing(self, other) -> bool:
+        return (len(self.idx) == len(other.idx) > 0 and all(
+            np.array_equal(a, b) and a.dtype == b.dtype for a, b in
+            zip(self.idx + self.keep, other.idx + other.keep)))
+
+
+def rank_main(rank: int, out: str, names) -> int:
     import torch
     import torch.distributed as dist
     # one thread a rank: four ranks share the host's cores
@@ -127,7 +209,6 @@ def rank_main(rank: int, out: str) -> int:
     from torch.distributed.tensor import Shard
 
     from repro_torch.ckpt import restore, save
-    from repro_torch.configs import smoke_config
     from repro_torch.launch.dryrun import operand_layout
     from repro_torch.launch.opcost import OpCounter
     from repro_torch.models.params import tree_flatten
@@ -138,9 +219,9 @@ def rank_main(rank: int, out: str) -> int:
     mesh = build_mesh(model_parallel=MESH[1], device="cpu")
     report = {"torch": torch.__version__, "cases": {}}
     ok = True
-    for name, arch, micro, kw in CASES:
+    for name, arch, micro, kw in (ALL_CASES[n] for n in names):
         d = os.path.join(out, name)
-        cfg = smoke_config(arch)
+        cfg = case_config(name)
         opt = OptConfig(**OPT_KW, **kw)
         shapes = train_state_shapes(cfg, opt)
         z = np.load(os.path.join(d, "batch.npz"))
@@ -148,11 +229,11 @@ def rank_main(rank: int, out: str) -> int:
         step = make_train_step(cfg, opt, micro, mesh=mesh)
         state = restore(os.path.join(d, "in"), shapes,
                         shardings=step.shardings)
-        with OpCounter("cpu") as oc:
+        with OpCounter("cpu") as oc, RoutingTape() as tape:
             new, metrics = step(state, batch)
         save(os.path.join(d, "out"), 4, new)
         whole = restore(os.path.join(d, "in"), shapes, device="cpu")
-        with OpCounter("cpu") as one:
+        with OpCounter("cpu") as one, RoutingTape() as one_tape:
             ref, rm = make_train_step(cfg, opt, micro)(
                 copy.deepcopy(whole), batch)
         err = {k: abs(float(metrics[k]) - float(rm[k]))
@@ -176,8 +257,16 @@ def rank_main(rank: int, out: str) -> int:
         within = all(err[k] <= t for k, t in tol(name).items())
         spread = all(s[0][0] > 0 and s[0][1] > 0 and s[1] == s[2]
                      for s in seen)
+        routed = {}
+        if cfg.num_experts:
+            routed = {"routing_equal": tape.same_routing(one_tape),
+                      "pairs": int(sum(k.size for k in tape.keep)),
+                      "dropped": int(sum((~k).sum() for k in tape.keep))}
+            within = within and routed["routing_equal"]
+            if rank == 0:
+                np.savez(os.path.join(d, "router.npz"), *tape.logits)
         ok = ok and within and spread
-        report["cases"][name] = {
+        report["cases"][name] = {**routed,
             "err": err, "within_tol": within,
             "sharded_data_model_by_rank": [s[0] for s in seen],
             "local_bytes_by_rank": [s[1] for s in seen],
@@ -194,19 +283,22 @@ def rank_main(rank: int, out: str) -> int:
     return 0 if ok else 1
 
 
-def run(out: str, timeout: float = 600.0) -> dict:
-    """Make the missing inputs, start the 4 ranks, wait for them (killing
-    all at the first failure or at ``timeout``), and return rank 0's
-    report with each rank's exit code under "exit_codes"."""
+def run(out: str, timeout: float = 600.0, names=None) -> dict:
+    """Make the missing inputs of the cases ``names`` (default CASES),
+    start the 4 ranks, wait for them (killing all at the first failure
+    or at ``timeout``), and return rank 0's report with each rank's exit
+    code under "exit_codes"."""
     import time
 
-    from repro_torch.configs import smoke_config
     from repro_torch.train.optimizer import OptConfig
-    for name, arch, _, kw in CASES:
+    names = list(names or [c[0] for c in CASES])
+    for name in names:
+        kw = ALL_CASES[name][3]
         d = os.path.join(out, name)
         if not os.path.exists(os.path.join(d, "batch.npz")):
             os.makedirs(d, exist_ok=True)
-            write_inputs(d, smoke_config(arch), OptConfig(**OPT_KW, **kw))
+            write_inputs(d, case_config(name), OptConfig(**OPT_KW, **kw),
+                         seq=CASE_SEQ.get(name, 32))
     pg = os.path.join(out, "pg")
     if os.path.exists(pg):
         os.remove(pg)
@@ -214,8 +306,9 @@ def run(out: str, timeout: float = 600.0) -> dict:
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(WORLD)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
-        env=env, cwd=ROOT, text=True) for r in range(WORLD)]
+         "--out", out, "--cases", ",".join(names)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env, cwd=ROOT, text=True)
+        for r in range(WORLD)]
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -249,17 +342,24 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="inputs, outputs and the process group's file "
                          "store (default: a temporary directory)")
+    ap.add_argument("--cases", default=",".join(c[0] for c in CASES),
+                    help="comma-separated case names, of "
+                         + ", ".join(ALL_CASES))
     ap.add_argument("--rank", type=int, default=None,
                     help="(internal) run as this rank")
     args = ap.parse_args(argv)
+    names = args.cases.split(",")
+    unknown = [n for n in names if n not in ALL_CASES]
+    if unknown:
+        ap.error(f"unknown cases {unknown}")
     if args.rank is not None:
-        return rank_main(args.rank, args.out)
+        return rank_main(args.rank, args.out, names)
     if args.out is None:
         with tempfile.TemporaryDirectory() as out:
-            report = run(out)
+            report = run(out, names=names)
     else:
         os.makedirs(args.out, exist_ok=True)
-        report = run(args.out)
+        report = run(args.out, names=names)
     print(json.dumps(report))
     return 0 if report["ok"] and not any(report["exit_codes"]) else 1
 

@@ -22,7 +22,7 @@ compiler to ask, so it runs the step once, as one rank of the mesh:
     passes is counted in ``kernels``);
   * the step runs once, under ``sharding_ctx(mesh, rules)``: value,
     gradient and AdamW update for ``train_4k`` (the trainer's
-    ``TrainStep`` on the mesh; an MoE or hybrid cell's without it),
+    ``TrainStep`` on the mesh, every family's, MoE routing included),
     ``api.prefill`` or ``api.decode_step``.  DTensor's sharding
     propagation inserts the collectives, as GSPMD does for ``repro``; a
     plain tensor the model makes (positions, masks) is taken as
@@ -175,9 +175,9 @@ def cell_layout(cfg, shape, mesh, rules=None, microbatches: int = 1,
     fallbacks) of one cell on ``mesh``.  A training cell of a config on
     the production layout runs the trainer's step on the mesh with the
     state on ``train_shardings``: what the dry run prices is what the
-    trainer runs.  An MoE or hybrid training cell keeps ``repro``'s
-    rules for every operand and the step without a mesh (ROADMAP item
-    11)."""
+    trainer runs.  A config that sets ``moe_ep`` (none published does)
+    keeps ``repro``'s rules for every operand and the step without a
+    mesh."""
     production = shape.kind == "train" and \
         train_layout(cfg) == "production"
     fn, op_shapes, op_axes = build_cell(cfg, shape, microbatches, opt,

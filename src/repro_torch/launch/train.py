@@ -12,16 +12,17 @@ Runs on the CUDA device unless ``--device cpu`` is given.  Under
 ``torchrun`` (or with ``RANK`` and ``WORLD_SIZE`` in the environment, and
 ``--init-method`` if not ``env://``) every process is one rank: NCCL on
 the card, gloo on the CPU.  ``build_mesh`` lays the ranks out as (world /
-model_parallel, model_parallel).  A dense, ssm, vlm or encdec config
-trains on ``repro``'s production layout: its state DTensors sharded
-FSDP-style over "data" and tensor-parallel over "model"
-(``layout=production``).  An MoE or hybrid config trains its experts
-expert-parallel over the model axis, every other weight replicated
-(``layout=moe_ep``).  Rank 0 runs the LM data plane and broadcasts each
-global batch (with two feed partitions the row order is not promised to
-be the same across processes, so the ranks do not each run a feed);
-each rank wraps its own rows of it.  Without that environment it is
-world size 1 and no mesh (``layout=none``).
+model_parallel, model_parallel).  Every published config trains on
+``repro``'s production layout, as ``repro``'s launcher trains it: its
+state DTensors sharded FSDP-style over "data", tensor- and
+expert-parallel over "model" (``layout=production``); a config that
+sets ``moe_ep`` trains its experts expert-parallel over the model axis,
+every other weight replicated (``layout=moe_ep``).  Rank 0 runs the LM
+data plane and broadcasts each global batch (with two feed partitions
+the row order is not promised to be the same across processes, so the
+ranks do not each run a feed); each rank wraps its own rows of it.
+Without that environment it is world size 1 and no mesh
+(``layout=none``).
 """
 
 from __future__ import annotations
@@ -105,8 +106,6 @@ def main(argv=None):
         # scores and the head, p rounded to 10 bits in P.V
         torch.backends.cuda.matmul.allow_tf32 = True
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.model_parallel > 1 and cfg.num_experts:
-        cfg = cfg.replace(moe_ep=True)
     mesh = build_mesh(model_parallel=args.model_parallel, device=dev) \
         if ranked else None
     if rank == 0:

@@ -23,7 +23,15 @@ What decides parity, and how the port keeps it on the card:
     scatter-add, whose updates run in sorted order.  The port does not
     use ``index_add_``, which adds in no fixed order on the card.
 
-Expert parallelism over a device mesh (``cfg.moe_ep``) is
+On the trainer's production layout the same code runs on DTensors: the
+experts sharded over "model", the rows over the batch axes.  Every index
+op is one DTensor can place on torch 2.11 and 2.13: a sort, a gather, an
+integer scatter-add or a running sum (``searchsorted`` has no strategy
+on either, ``cummax`` none on 2.11).  Per-row routing stays on
+the rows' ranks; global routing gathers every token first, as
+``repro``'s one sort does.  The expert buffer is sharded over
+"experts" before the products, so a rank multiplies only its own
+experts.  Explicit expert parallelism (``cfg.moe_ep``) is
 ``moe_ep.moe_ffn_ep``, which falls back to ``moe_ffn`` without a mesh.
 """
 
@@ -71,6 +79,16 @@ def _route(logits: Array, k: int) -> Tuple[Array, Array]:
     return torch.softmax(gate[..., :k], dim=-1), idx[..., :k]
 
 
+def _expert_starts(flat_e: Array, num_experts: int) -> Tuple[Array, Array]:
+    """(count, first sorted index) of each expert's pairs, (G, E) each:
+    the counts from an integer scatter-add (exact in any order), the
+    starts their exclusive running sum (``repro``'s ``searchsorted`` of
+    the sorted experts), in O(T·K) memory."""
+    counts = flat_e.new_zeros((flat_e.shape[0], num_experts)).scatter_add(
+        1, flat_e, torch.ones_like(flat_e))
+    return counts, torch.cumsum(counts, dim=1) - counts
+
+
 def expert_slots(idx: Array, num_experts: int, capacity: int
                  ) -> Tuple[Array, Array, Array]:
     """Where each routed pair of each group goes.  idx: (G, T, K) experts.
@@ -79,36 +97,56 @@ def expert_slots(idx: Array, num_experts: int, capacity: int
     ``keep`` (the pair is within its expert's ``capacity``) and ``slot``
     (its row of the (E·C + 1)-row buffer; dropped pairs go to the last)."""
     g, t, k = idx.shape
-    tk = t * k
-    flat_e = idx.reshape(g, tk)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    se = torch.gather(flat_e, 1, order)
-    experts = torch.arange(num_experts, device=idx.device)
-    group_start = torch.searchsorted(
-        se, experts.expand(g, num_experts).contiguous(), side="left")
-    pos = (torch.arange(tk, device=idx.device)
-           - torch.gather(group_start, 1, se))
+    flat_e = idx.reshape(g, t * k)
+    se, order = torch.sort(flat_e, dim=-1, stable=True)
+    _, starts = _expert_starts(flat_e, num_experts)
+    pos = torch.arange(t * k, device=idx.device) - torch.gather(starts, 1,
+                                                                se)
     keep = pos < capacity
     slot = torch.where(keep, se * capacity + pos, num_experts * capacity)
     return order, keep, slot
 
 
+def _buffer_pairs(idx: Array, order: Array, num_experts: int,
+                  capacity: int) -> Array:
+    """(G, E·C): the token-major pair that fills each row of the expert
+    buffer, T·K where none does.  Row (e, c) takes the sorted pair
+    ``start[e] + c`` while c is below e's count."""
+    g, t, k = idx.shape
+    counts, starts = _expert_starts(idx.reshape(g, t * k), num_experts)
+    c = torch.arange(capacity, device=idx.device)
+    filled = c < counts[..., None]                        # (G, E, C)
+    j = torch.where(filled, starts[..., None] + c, 0).reshape(g, -1)
+    return torch.where(filled.reshape(g, -1), torch.gather(order, 1, j),
+                       t * k)
+
+
 def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
                       idx: Array, capacity: int) -> Array:
     """Sort-based dispatch for G token groups routed independently.
-    x: (G, T, D); weights/idx: (G, T, K).  Returns (G, T, D)."""
+    x: (G, T, D); weights/idx: (G, T, K).  Returns (G, T, D).
+
+    Every index op is a gather, so DTensor can place each one (the
+    trainer's production layout) and the backward adds each gradient
+    once: the buffer gathers its rows from the token-major pairs (each
+    token's row repeated K times, whose gradients a sum over K adds in
+    a fixed order) with a zero row for the empty ones, and the combine
+    gathers each pair's row of the expert outputs, whose zero row takes
+    the dropped pairs."""
     g, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     tk = t * k
     order, keep, slot = expert_slots(idx, e, capacity)
-    st = order // k                              # each sorted pair's token
 
-    buf = x.new_zeros((g, e * capacity + 1, d))
-    buf.scatter_(1, slot[..., None].expand(g, tk, d),
-                 torch.gather(x, 1, st[..., None].expand(g, tk, d)))
-    # (G, E, C, D) -> (E, G·C, D): one batched matmul per weight
-    xe = buf[:, :-1].reshape(g, e, capacity, d).transpose(0, 1).reshape(
+    pairs = x[:, :, None, :].expand(g, t, k, d).reshape(g, tk, d)
+    pairs = torch.cat([pairs, pairs.new_zeros((g, 1, d))], dim=1)
+    rows = _buffer_pairs(idx, order, e, capacity)
+    buf = torch.gather(pairs, 1, rows[..., None].expand(g, e * capacity, d))
+    # (G, E, C, D) -> (E, G·C, D): one batched matmul per weight, on this
+    # rank's experts
+    xe = buf.reshape(g, e, capacity, d).transpose(0, 1).reshape(
         e, g * capacity, d)
+    xe = shard(xe, "experts", "batch", None)
     h = (F.silu(torch.bmm(xe, p["w_gate"].to(x.dtype)))
          * torch.bmm(xe, p["w_up"].to(x.dtype)))
     out = torch.bmm(h, p["w_down"].to(x.dtype))
@@ -117,17 +155,17 @@ def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
     out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
 
     # back to token-major pairs, each token's in ascending expert order
-    # (repro's scatter-add order; a token's k experts are distinct)
-    inv = torch.empty_like(order).scatter_(
-        1, order, torch.arange(tk, device=x.device).expand(g, tk))
-    by_e = torch.argsort(idx, dim=-1)
+    # (repro's scatter-add order; a token's k experts are distinct); the
+    # inverse of the permutation ``order`` is its argsort
+    inv = torch.argsort(order, dim=-1, stable=True)
+    by_e = torch.argsort(idx, dim=-1, stable=True)
     slot_t, keep_t = (torch.gather(torch.gather(a, 1, inv).reshape(g, t, k),
                                    2, by_e) for a in (slot, keep))
     coef = (torch.gather(weights, 2, by_e) * keep_t).to(out.dtype)
     gathered = torch.gather(
         out, 1, slot_t.reshape(g, tk, 1).expand(g, tk, d)).reshape(
             g, t, k, d) * coef[..., None]
-    y = torch.zeros((g, t, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros_like(gathered[:, :, 0])
     for j in range(k):
         y = y + gathered[:, :, j]
     return y

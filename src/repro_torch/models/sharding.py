@@ -20,7 +20,9 @@ without a mesh) and redistributes a DTensor to the spec's placements
 (``with_sharding_constraint``'s counterpart).  The trainer's production
 layout (``train/steps.py``) runs the model code on DTensors placed by
 these rules, and there ``shard`` redistributes as GSPMD's constraint
-does; expert parallelism stays explicit (``models/moe_ep.py``).
+does, MoE layers included ("experts" over "model"); a config that sets
+``moe_ep`` keeps the explicit expert parallelism of
+``models/moe_ep.py``.
 
 ``cut_to_shard`` turns a whole tensor that every rank holds into the
 DTensor of this rank's shard without a collective (init, restore).

@@ -64,7 +64,7 @@ def remat_wrap(cfg: ModelConfig, fn):
     """``fn`` under the config's rematerialisation policy.  Without grad
     mode there is nothing to save and ``fn`` runs as it is.  A
     checkpointed ``fn`` keeps the sharding context it was wrapped in, for
-    its recompute too (``moe_ep`` reads the mesh there)."""
+    its recompute too (``shard`` and ``moe_ep`` read the mesh there)."""
     if cfg.remat == "none":
         return fn
     kw = {}

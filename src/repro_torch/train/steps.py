@@ -17,33 +17,38 @@ dimensions; one process a rank) the step computes what ``repro``'s
 GSPMD step computes for its batch sharding, in one of two layouts
 (``train_layout``):
 
-  * **production** (every config without experts: dense, ssm, vlm,
-    encdec): ``repro``'s own layout.  Every leaf of the state is a
-    DTensor placed by ``train_shardings`` under ``DEFAULT_RULES``: FSDP
-    ("embed" over "data"), tensor parallelism ("heads", "ffn", "vocab",
-    "inner", "ssm_heads" over "model"), the moments as their parameters
-    (ZeRO), shards over a mesh dimension of size 1 given as replicas
-    (``live_placements``).  The batch is a DTensor sharded over the
-    batch axes, built from this rank's rows (``local_rows``) with no
-    scatter.  ``api.loss`` runs on them under ``sharding_ctx`` and
-    ``implicit_replication`` (the plain tensors the models make --
-    positions, masks, the SSD triangle -- are replicas), and DTensor's
-    propagation inserts the collectives, as GSPMD does: the global mask
-    count, the gradient sums (``Partial`` gradients reduced onto their
-    leaves' placements) and the clipping norm come out of it;
-  * **moe_ep** (every config with experts: moe, hybrid): every leaf a
-    plain tensor, replicated, except, with ``cfg.moe_ep``, the experts,
-    which each model rank holds a slice of (``moe_ep.moe_ffn_ep`` routes
-    tokens to them; ``local_state`` / ``global_state`` carry a whole
-    state in and out).  The collectives are explicit: the loss is the
-    global batch's (each rank's masked cross-entropy sum over the data
-    ranks' summed mask count, plus the balance loss averaged over the
-    data ranks), each rank back-propagates its share (its objective
-    over the model axis's size), the gradient of a leaf is summed over
-    the mesh dimensions on which the leaf is replicated, and the
-    clipping norm sums each slice's squares over the dimensions that
-    shard it.  MoE routing does not run under DTensor yet (ROADMAP item
-    11).
+  * **production** (every config that does not set ``moe_ep``: every
+    published one, dense, ssm, vlm, encdec, moe and hybrid alike):
+    ``repro``'s own layout.  Every leaf of the state is a DTensor placed
+    by ``train_shardings`` under ``DEFAULT_RULES``: FSDP ("embed" over
+    "data"), tensor parallelism ("heads", "ffn", "vocab", "inner",
+    "ssm_heads" over "model") and expert parallelism ("experts" over
+    "model", the router's included, "ffn" then replicated in the
+    experts), the moments as their parameters (ZeRO), shards over a
+    mesh dimension of size 1 given as replicas (``live_placements``).
+    The batch is a DTensor sharded over the batch axes, built from this
+    rank's rows (``local_rows``) with no scatter.  ``api.loss`` runs on
+    them under ``sharding_ctx`` and ``implicit_replication`` (the plain
+    tensors the models make -- positions, masks, the SSD triangle -- are
+    replicas), and DTensor's propagation inserts the collectives, as
+    GSPMD does: the global mask count, the balance loss over the global
+    batch, MoE routing (per row on the rows' ranks, or over all tokens
+    when few), the expert products on each rank's experts, the gradient
+    sums (``Partial`` gradients reduced onto their leaves' placements)
+    and the clipping norm come out of it;
+  * **moe_ep** (a config that sets ``moe_ep``): every leaf a plain
+    tensor, replicated, except the experts, which each model rank holds
+    a slice of (``moe_ep.moe_ffn_ep`` routes tokens to them;
+    ``local_state`` / ``global_state`` carry a whole state in and out).
+    The collectives are explicit: the loss is the global batch's (each
+    rank's masked cross-entropy sum over the data ranks' summed mask
+    count, plus the balance loss averaged over the data ranks), each
+    rank back-propagates its share (its objective over the model axis's
+    size), the gradient of a leaf is summed over the mesh dimensions on
+    which the leaf is replicated, and the clipping norm sums each
+    slice's squares over the dimensions that shard it.  ``repro`` keeps
+    a ``moe_ep`` config's other weights on ``DEFAULT_RULES``; this
+    layout replicates them.
 """
 
 from __future__ import annotations
@@ -123,23 +128,21 @@ def train_state_axes(cfg: ModelConfig, opt: OptConfig) -> TrainState:
 
 def train_layout(cfg: ModelConfig) -> str:
     """The trainer's layout on a mesh: "production" (``repro``'s
-    ``DEFAULT_RULES``) for a config without experts, "moe_ep" (explicit
-    collectives, experts over "model" with ``cfg.moe_ep``) for one
-    with them."""
-    return "moe_ep" if cfg.num_experts else "production"
+    ``DEFAULT_RULES``) for every config but one that sets ``moe_ep``,
+    which trains on "moe_ep" (explicit collectives, experts over
+    "model")."""
+    return "moe_ep" if cfg.moe_ep else "production"
 
 
 def train_rules(cfg: ModelConfig) -> Rules:
     """The rules of ``train_layout``: ``DEFAULT_RULES`` on the production
-    layout; on moe_ep, rows over the batch axes, an expert-parallel
-    config's experts over "model", every other logical axis
-    replicated."""
+    layout; on moe_ep, rows over the batch axes, the experts over
+    "model", every other logical axis replicated."""
     if train_layout(cfg) == "production":
         return dict(DEFAULT_RULES)
     rules: Rules = {name: None for name in DEFAULT_RULES}
     rules["batch"] = DEFAULT_RULES["batch"]
-    if cfg.moe_ep:
-        rules["experts"] = "model"
+    rules["experts"] = "model"
     return rules
 
 
@@ -154,9 +157,11 @@ def _router_whole(axes: Any, router: bool = False) -> Any:
 
 
 def train_layout_axes(cfg: ModelConfig, opt: OptConfig) -> TrainState:
-    """``train_state_axes`` as the trainer lays the state out: the
-    router's leaves without "experts"."""
-    return _router_whole(train_state_axes(cfg, opt))
+    """``train_state_axes`` as the trainer lays the state out: on moe_ep
+    the router's leaves without "experts"; on the production layout
+    ``repro``'s axes, the router's ("embed", "experts") included."""
+    axes = train_state_axes(cfg, opt)
+    return _router_whole(axes) if train_layout(cfg) == "moe_ep" else axes
 
 
 def train_shardings(cfg: ModelConfig, opt: OptConfig, mesh) -> Any:

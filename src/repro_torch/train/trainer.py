@@ -12,16 +12,18 @@
 Runs on the CUDA device unless the caller passes ``device="cpu"``.
 With ``mesh`` (one process a rank; ``runtime.elastic.build_mesh``) every
 rank runs the same loop over the same global batches, on the step's
-``train_layout``.  On the production layout (every config without
-experts) the state is the DTensor tree of ``repro``'s production
-placements (FSDP over "data", tensor parallelism over "model"): drawn
-leaf by leaf and cut to this rank's shards, so no rank ever holds the
-whole state; checkpoints gather one leaf at a time (rank 0 writes
-``repro``'s layout) and restore onto the mesh's placements through
+``train_layout``.  On the production layout (every config that does
+not set ``moe_ep``, MoE and hybrid ones included) the state is the
+DTensor tree of ``repro``'s production placements (FSDP over "data",
+tensor and expert parallelism over "model"): drawn leaf by leaf and cut
+to this rank's shards, so no rank ever holds the whole state;
+checkpoints gather one leaf at a time (rank 0 writes ``repro``'s
+layout) and restore onto the mesh's placements through
 ``remesh_shardings``, so a checkpoint written on one mesh trains on
-another.  On moe_ep the state holds this rank's slices
-(``steps.local_state``).  A step that fails on one rank only is not
-recovered across the mesh: the others wait in its collectives.
+another.  On moe_ep (a config that sets ``moe_ep``) the state holds
+this rank's slices (``steps.local_state``).  A step that fails on one
+rank only is not recovered across the mesh: the others wait in its
+collectives.
 """
 
 from __future__ import annotations

@@ -163,11 +163,10 @@ def test_param_tree_shardings_match_repro_at_full_width(arch, shape):
     leaf for leaf (qwen1.5's 40 heads fall back on 4 and 8), the same
     fallbacks, and DTensor placements that follow the spec.  The whole
     train state under the trainer's ``train_shardings`` (plain and
-    factored second moment): on the production layout (qwen1.5,
-    whisper) repro's spec of every leaf, the moments' included, with
-    the live placements (a shard over a size-1 mesh dimension is a
-    replica); on moe_ep (olmoe, jamba) each moment on its parameter's
-    placements."""
+    factored second moment), every arch on the production layout:
+    repro's spec of every leaf, the moments' and the MoE router's
+    included, with the live placements (a shard over a size-1 mesh
+    dimension is a replica)."""
     from torch.distributed.tensor import Replicate, Shard
     tm, jm = _t_mesh(shape), _j_mesh(shape)
     with TSH.sharding_ctx(tm), JSH.sharding_ctx(jm):
@@ -195,10 +194,7 @@ def test_param_tree_shardings_match_repro_at_full_width(arch, shape):
         state = tree_flatten(sh)[0]
         jo = JO.OptConfig(**opt_kw)
         jcfg = j_get_config(arch)
-        if TS.train_layout(cfg) == "moe_ep":
-            assert ([x.placements for x in tree_flatten(sh["opt"]["m"])[0]]
-                    == [x.placements for x in tree_flatten(sh["params"])[0]])
-            continue
+        assert TS.train_layout(cfg) == "production"
         with JSH.sharding_ctx(jm):
             axes = jax.tree.leaves(JS.train_state_axes(jcfg, jo),
                                    is_leaf=lambda x: isinstance(x, tuple))
@@ -891,9 +887,10 @@ def test_causal_conv_and_embed_are_their_old_forms(dtype):
 
 def test_launch_train_model_parallel_two_processes(tmp_path):
     """``launch/train.py --model-parallel 2 --device cpu --smoke``: 3 steps
-    of olmoe over a (1, 2) mesh, experts split over the model axis, rank
-    0 feeding both; its checkpoint holds whole leaves that repro
-    restores."""
+    of olmoe over a (1, 2) mesh on the production layout, as repro's
+    launcher trains it (no forced moe_ep: experts over the model axis
+    as DTensors), rank 0 feeding both; its checkpoint holds whole leaves
+    that repro restores."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
            "olmoe-1b-7b", "--smoke", "--steps", "3", "--seq-len", "32",
            "--batch", "2", "--device", "cpu", "--model-parallel", "2",
@@ -904,10 +901,11 @@ def test_launch_train_model_parallel_two_processes(tmp_path):
         text=True, env={**os.environ, "PYTHONPATH": SRC, "RANK": str(r),
                         "WORLD_SIZE": "2"}) for r in range(2)]
     out = _wait_all(procs, 240)[0]
-    assert "mesh={'data': 1, 'model': 2} moe_ep=True" in out, out
+    assert "mesh={'data': 1, 'model': 2} moe_ep=False layout=production" \
+        in out, out
     assert "step     3" in out, out
     assert RC.latest_step(str(tmp_path / "ckpt")) == 3
-    jcfg = j_smoke_config("olmoe-1b-7b").replace(moe_ep=True)
+    jcfg = j_smoke_config("olmoe-1b-7b")
     shapes = JS.train_state_shapes(jcfg, JO.OptConfig())
     back = RC.restore(str(tmp_path / "ckpt"), shapes, 3)
     assert int(back["step"]) == 3
