@@ -1,6 +1,7 @@
 """Time the port from two source trees in turns on one CUDA card.
 
-    python3 scripts/ab_trees.py --base DIR [--what kernels|paths|both]
+    python3 scripts/ab_trees.py --base DIR
+        [--what kernels|paths|both|families]
                                 [--turns base,this,this,base] [--out FILE]
 
 DIR is another checkout of this repository (for example an unpacked
@@ -17,7 +18,11 @@ directory).  ``--turns base`` measures the other tree alone.
            which are reported and do not fail the turn;
   paths    the feed (``run_feed``: 20 x 6,720 tweets at scale 1.0) and
            serving (``serve_path``: deepseek-coder-33b at full width, 4
-           layers, 12 requests).
+           layers, 12 requests);
+  families phases 11 and 10's serving (mamba2-130m and olmoe-1b-7b
+           whole, their requests) and phase 15's Trainer for the same
+           two families (full width, olmoe cut to 4 of 16 layers), the
+           card-vs-CPU checks left out.
 
 A tree whose segment_sum wrapper has no count mode counts through a column
 of ones, as its dispatch layer did.  Prints the card's name and power
@@ -81,6 +86,35 @@ def child(tree: str, what: str) -> dict:
             cfg, torch.Generator(device=dev).manual_seed(cs.SERVE_SEED))
         cs.serve_warmup(cfg, params, dev)
         out["serve"] = cs.serve_path(cfg, params, dev)
+    if what == "families":
+        import gc
+
+        from repro_torch.core import RefStore
+        from repro_torch.core.enrich import queries as Q
+        store = RefStore()
+        Q.make_reference_tables(store, scale=1.0, seed=cs.SEED_TABLES)
+        for fam in ("ssm", "moe"):
+            spec = cs.FAMILY_SERVE[fam]
+            cfg, params, _ = cs.family_model(fam, dev)
+            cs.serve_warmup(cfg, params, dev)
+            reqs = cs.serve_requests(
+                cfg, spec["requests"], spec["new"], spec["multiple"],
+                spec.get("prompt_len", cs.SERVE_PROMPT_LEN))
+            s = cs.serve_path(cfg, params, dev, reqs, tag=f"serve {fam}",
+                              max_len=spec.get("max_len", cs.SERVE_MAX_LEN))
+            out[f"serve_{fam}"] = {k: s[k] for k in (
+                "decode_ms_per_step", "new_tokens_per_s",
+                "prefill_ms_per_request")}
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            # TF32 on for training, off for serving, as chip_smoke runs
+            torch.backends.cuda.matmul.allow_tf32 = True
+            r, _ = cs.family_train(fam, dev, store, check=False)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            out[f"train_{fam}"] = {k: r[k] for k in (
+                "step_ms_median", "forward_backward_ms_median",
+                "optimizer_ms_median", "tokens_per_s")}
     return out
 
 
@@ -89,7 +123,7 @@ def main() -> int:
     ap.add_argument("--base", required=True,
                     help="the other checkout's root")
     ap.add_argument("--what", default="both",
-                    choices=("kernels", "paths", "both"))
+                    choices=("kernels", "paths", "both", "families"))
     ap.add_argument("--turns", default="base,this,this,base",
                     help="comma-separated order of the trees' turns")
     ap.add_argument("--out", default=None, help="JSON file of all turns")

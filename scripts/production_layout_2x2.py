@@ -34,14 +34,18 @@ leaves, of the new parameters, m and v, each divided by the largest
 over "data" and over "model"; every rank's local state bytes beside
 ``launch/dryrun.py::operand_layout``'s for the mesh; every rank's
 matmul FLOPs of the step (``launch/opcost.OpCounter`` below DTensor)
-beside the one-process step's, which an ideal split would divide by 4
-(read, not held to anything); for an MoE case whether every layer's
-expert choices and kept pairs equal the one-process step's (integers,
-exactly) and the pairs dropped for capacity out of those routed (over
-every MoE call of the step, a checkpointed layer's recompute included);
-and ``ok``.  The exit code is 0 when every reading is within its case's
-limits (``tol``), every rank shards a leaf over each axis, every rank's
-bytes are the dry run's and an MoE case routes as one process does.
+beside the one-process step's, which an ideal split would divide by 4,
+and rank 0's ratio to that quarter (``flops_ratio``); for an MoE case
+whether every layer's expert choices and kept pairs equal the
+one-process step's (integers, exactly) and the pairs dropped for
+capacity out of those routed (over every MoE call of the step, a
+checkpointed layer's recompute included); and ``ok``.  The exit code
+is 0 when every reading is within its case's limits (``tol``), every
+rank shards a leaf over each axis, every rank's bytes are the dry
+run's, an MoE case routes as one process does, and rank 0's
+``flops_ratio`` is within ``flops_limit``: at most FLOPS_RATIO_MAX, and
+no more than the case read before each weight was placed at its use
+(FLOPS_RATIO_BEFORE, by torch version).
 """
 
 from __future__ import annotations
@@ -117,6 +121,30 @@ CASE_TOL = {"whisper": {"grad_norm": 2e-4, "m": 1e-3, "v": 5e-4},
 
 def tol(name: str) -> dict:
     return {**TOL, **CASE_TOL.get(name, {})}
+
+
+# rank 0's matmul FLOPs / (the one-process step's / 4): a rank may not
+# repeat another's product (each weight placed at its use,
+# models/sharding.py::product_operands), nor do more than the step did
+# when DTensor placed the products by the least redistribution (read
+# under torch 2.13.0+cpu on a CPU host, and 2.11.0+cu128 on an H100's
+# host; a case with no reading there is held to FLOPS_RATIO_MAX alone)
+FLOPS_RATIO_MAX = 1.10
+FLOPS_RATIO_BEFORE = {
+    "2.13": {"deepseek": 1.2143, "deepseek_microbatches": 1.2143,
+             "mamba2_factored_v": 1.0000, "internvl2": 1.2308,
+             "whisper": 1.1162, "olmoe": 1.6067, "jamba": 1.0201},
+    "2.11": {"deepseek": 1.071, "mamba2_factored_v": 1.149,
+             "internvl2": 1.077, "whisper": 1.318, "olmoe": 1.595,
+             "jamba": 1.126},
+}
+
+
+def flops_limit(name: str, torch_version: str) -> float:
+    """The most rank 0's ``flops_ratio`` may read for case ``name``."""
+    before = FLOPS_RATIO_BEFORE.get(".".join(torch_version.split(".")[:2]),
+                                    {})
+    return min(FLOPS_RATIO_MAX, before.get(name, FLOPS_RATIO_MAX))
 
 
 def case_batch(cfg, seed: int = 0, seq: int = 32) -> dict:
@@ -257,6 +285,8 @@ def rank_main(rank: int, out: str, names) -> int:
         within = all(err[k] <= t for k, t in tol(name).items())
         spread = all(s[0][0] > 0 and s[0][1] > 0 and s[1] == s[2]
                      for s in seen)
+        ratio = seen[0][3] / (one.cost.flops / WORLD)
+        limit = flops_limit(name, torch.__version__)
         routed = {}
         if cfg.num_experts:
             routed = {"routing_equal": tape.same_routing(one_tape),
@@ -265,14 +295,15 @@ def rank_main(rank: int, out: str, names) -> int:
             within = within and routed["routing_equal"]
             if rank == 0:
                 np.savez(os.path.join(d, "router.npz"), *tape.logits)
-        ok = ok and within and spread
+        ok = ok and within and spread and ratio <= limit
         report["cases"][name] = {**routed,
             "err": err, "within_tol": within,
             "sharded_data_model_by_rank": [s[0] for s in seen],
             "local_bytes_by_rank": [s[1] for s in seen],
             "dryrun_bytes_by_rank": [s[2] for s in seen],
             "flops_by_rank": [s[3] for s in seen],
-            "flops_one_process": one.cost.flops}
+            "flops_one_process": one.cost.flops,
+            "flops_ratio": ratio, "flops_limit": limit}
         if rank == 0:
             np.savez(os.path.join(d, "metrics.npz"),
                      **{k: v.numpy() for k, v in metrics.items()})

@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import TensorSpec, torch_dtype, tree_map
+from repro_torch.models.sharding import use_weight
 
 Array = torch.Tensor
 
@@ -193,9 +194,9 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         x = x + a
         h = L.rmsnorm(x, lp["lnx"], cfg.norm_eps)
         xp = lp["cross_attn"]
-        q = torch.einsum("bsd,dhk->bshk", h, xp["wq"].to(h.dtype))
+        q = L.proj_heads(h, xp["wq"], "heads")
         if cfg.qkv_bias:
-            q = q + xp["bq"].to(h.dtype)
+            q = q + use_weight(xp["bq"], h.dtype)
         x = x + L.cross_attention_apply(cfg, xp, q, xk[i], xv[i])
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp(cfg, lp["mlp"], h)

@@ -31,7 +31,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import note_path, on_cuda
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.params import PSpec
-from repro_torch.models.sharding import grad_onto_own_placements, shard
+from repro_torch.models.sharding import (constrain, grad_onto_own_placements,
+                                         heads_where_free, matmul_rows,
+                                         on_own_rows, product_operands,
+                                         shard, use_weight, whole_where)
 
 Array = torch.Tensor
 
@@ -47,7 +50,7 @@ def rmsnorm(x: Array, w: Array, eps: float) -> Array:
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+    return (x * torch.rsqrt(var + eps)).to(dt) * use_weight(w, dt)
 
 
 def rmsnorm_spec(d: int) -> PSpec:
@@ -100,14 +103,37 @@ def attention_specs(cfg: ModelConfig, d_in: Optional[int] = None) -> Dict:
     return specs
 
 
+def proj_heads(x: Array, w: Array, heads: str) -> Array:
+    """x (B,S,D) times a (D,H,hd) weight, ``einsum("bsd,dhk->bshk")`` as
+    one matmul over the flattened (H·hd), both placed for it
+    (``product_operands``: the contraction split where the heads are
+    whole over "model"), the Partial sum reduced onto the ``heads``
+    rule."""
+    b, s, _ = x.shape
+    d, h, hd = w.shape
+    x, w = product_operands(x, w.reshape(d, h * hd), x.dtype, ((0, -1),))
+    y = matmul_rows(x, w).reshape(b, s, h, hd)
+    return constrain(y, "batch", "act_seq", heads, None)
+
+
+def _proj_out(out: Array, w: Array, dtype: torch.dtype) -> Array:
+    """The output projection of (B,S,H,hd) heads,
+    ``einsum("bshk,hkd->bsd")`` as one matmul over the flattened (H·hd),
+    each rank's rows, the Partial sum over the heads reduced."""
+    b, s, h, hd = out.shape
+    out, w = product_operands(out.reshape(b, s, h * hd),
+                              w.reshape(h * hd, -1), dtype, ((0, -1),))
+    return constrain(matmul_rows(out, w), "batch", "seq", None)
+
+
 def _qkv(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array, Array]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = proj_heads(x, p["wq"], "heads")
+    k = proj_heads(x, p["wk"], "kv_heads")
+    v = proj_heads(x, p["wv"], "kv_heads")
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + use_weight(p["bq"], x.dtype)
+        k = k + use_weight(p["bk"], x.dtype)
+        v = v + use_weight(p["bv"], x.dtype)
     return q, k, v
 
 
@@ -156,7 +182,17 @@ def _sdpa(cfg: ModelConfig, q: Array, k: Array, v: Array,
     the kernel on the card, its plain version elsewhere.  Anything else
     takes ``repro``'s choice: ``_chunked_gqa`` when both lengths have a
     block, else the materialised masked softmax; on the card it is
-    recorded as "plain_on_card"."""
+    recorded as "plain_on_card".
+
+    On DTensors whose rows and heads each rank can attend over alone
+    (``on_own_rows``), it runs on the local shards and hands back q's
+    placements: no rank repeats another's heads."""
+    own = on_own_rows(lambda *a: (_sdpa(cfg, *a, causal),),
+                      (q, k, v, pos_q, pos_k, seg_q, seg_k),
+                      ((0, 2),) * 3 + ((0, None),) * 4, ((0, 2),),
+                      trade_heads=False)
+    if own is not None:
+        return own[0]
     s, t = q.shape[1], k.shape[1]
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
@@ -211,8 +247,8 @@ def _chunked_gqa(cfg: ModelConfig, q: Array, k: Array, v: Array,
     is checkpointed: backward keeps its carry, not its (B,Kv,G,Qb,Tb)
     score blocks, and recomputes them one step at a time."""
     b, s, h, d = q.shape
-    t = k.shape[1]
-    kvh, g = cfg.num_kv_heads, cfg.q_per_kv
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
     nq, nk = s // q_block, t // kv_block
     qx = q.reshape(b, nq, q_block, kvh, g, d)
     kx = k.reshape(b, nk, kv_block, kvh, d)
@@ -263,7 +299,7 @@ def attention(cfg: ModelConfig, p: Dict, x: Array,
     out = _sdpa(cfg, q, k, v, positions, positions,
                 segment_ids, segment_ids, causal)
     out = shard(out, "batch", "act_seq", "heads", None)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return _proj_out(out, p["wo"], x.dtype)
 
 
 def attention_prefill(cfg: ModelConfig, p: Dict, x: Array
@@ -277,8 +313,7 @@ def attention_prefill(cfg: ModelConfig, p: Dict, x: Array
     k = shard(k, "batch", "kv_seq", "kv_heads", None)
     v = shard(v, "batch", "kv_seq", "kv_heads", None)
     out = _sdpa(cfg, q, k, v, None, None, None, None, True)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y, (k, v)
+    return _proj_out(out, p["wo"], x.dtype), (k, v)
 
 
 def cross_attention_specs(cfg: ModelConfig) -> Dict:
@@ -289,13 +324,13 @@ def cross_attention(cfg: ModelConfig, p: Dict, x: Array, enc: Array
                     ) -> Tuple[Array, Tuple[Array, Array]]:
     """Encoder-decoder cross attention (no RoPE, no mask). x: (B,S,D),
     enc: (B,F,D). Returns (out, (k,v)) so serving can cache encoder KV."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bfd,dhk->bfhk", enc, p["wk"].to(enc.dtype))
-    v = torch.einsum("bfd,dhk->bfhk", enc, p["wv"].to(enc.dtype))
+    q = proj_heads(x, p["wq"], "heads")
+    k = proj_heads(enc, p["wk"], "kv_heads")
+    v = proj_heads(enc, p["wv"], "kv_heads")
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + use_weight(p["bq"], x.dtype)
+        k = k + use_weight(p["bk"], enc.dtype)
+        v = v + use_weight(p["bv"], enc.dtype)
     y = cross_attention_apply(cfg, p, q, k, v)
     return y, (k, v)
 
@@ -307,7 +342,7 @@ def cross_attention_apply(cfg: ModelConfig, p: Dict, q: Array,
     a non-causal, segment-free attention never reads; the port passes
     ``None`` (the same thing) so that ``_sdpa`` takes the flash kernel."""
     out = _sdpa(cfg, q, k, v, None, None, None, None, causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(q.dtype))
+    return _proj_out(out, p["wo"], q.dtype)
 
 
 def cache_update(k_cache: Array, v_cache: Array, k_new: Array, v_new: Array,
@@ -377,14 +412,17 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Array, pos: Array,
     q = rope(q, pos[:, None], cfg.rope_theta)
     k_new = rope(k_new, pos[:, None], cfg.rope_theta)
     k_cache, v_cache = cache_update(k_cache, v_cache, k_new, v_new, pos)
-    scores = _gqa_scores(q, k_cache, cfg.q_per_kv)    # (B,Kv,G,1,Smax)
+    # the cache's sequence stays put; free mesh dimensions split heads
+    q, kc, vc = heads_where_free(whole_where(q, k_cache, 1), k_cache,
+                                 v_cache)
+    scores = _gqa_scores(q, kc, cfg.q_per_kv)         # (B,Kv,G,1,Smax)
     valid = (torch.arange(smax, device=x.device)[None]
              <= pos[:, None])                          # (B,Smax)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v_cache)                    # (B,1,H,D)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    return y, k_cache, v_cache
+    out = _gqa_out(probs, vc)                         # (B,1,H,D)
+    out = constrain(out, "batch", "act_seq", "heads", None)
+    return _proj_out(out, p["wo"], x.dtype), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -409,18 +447,29 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
 
 
 def mlp(cfg: ModelConfig, p: Dict, x: Array) -> Array:
+    """Each weight placed for its product (``use_weight``), the
+    products' Partial sums reduced by the ``shard`` after them."""
+    dt = x.dtype
+
+    def product(h, name, *out):
+        h, w = product_operands(h, p[name], dt, ((0, -1),))
+        return constrain(matmul_rows(h, w), *out)
+
+    def up(name):
+        return product(x, name, "batch", "act_seq", "ffn")
+
+    def down(h, name):
+        return product(h, name, "batch", "seq", None)
+
     if cfg.mlp_variant == "swiglu":
-        g = torch.matmul(x, p["w_gate"].to(x.dtype))
-        u = torch.matmul(x, p["w_up"].to(x.dtype))
-        h = torch.nn.functional.silu(g) * u
+        h = torch.nn.functional.silu(up("w_gate")) * up("w_up")
         h = shard(h, "batch", "act_seq", "ffn")
-        return torch.matmul(h, p["w_down"].to(x.dtype))
+        return down(h, "w_down")
     # jax.nn.gelu's default is the tanh approximation
-    h = torch.matmul(x, p["w_in"].to(x.dtype))
-    h = torch.nn.functional.gelu(h + p["b_in"].to(x.dtype),
+    h = torch.nn.functional.gelu(up("w_in") + use_weight(p["b_in"], dt),
                                  approximate="tanh")
     h = shard(h, "batch", "act_seq", "ffn")
-    return torch.matmul(h, p["w_out"].to(x.dtype)) + p["b_out"].to(x.dtype)
+    return down(h, "w_out") + use_weight(p["b_out"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -458,9 +507,14 @@ def embed(p: Dict, tokens: Array, dtype: torch.dtype) -> Array:
 
 def unembed(cfg: ModelConfig, p: Dict, x: Array) -> Array:
     """Float32 logits (B,S,V): the head in x's dtype, widened exactly, so
-    the products accumulate in float32 and are never rounded to bf16."""
-    w = grad_onto_own_placements(p.get("head", p["tok"]))
-    logits = torch.matmul(x.float(), w.to(x.dtype).float().t())
+    the products accumulate in float32 and are never rounded to bf16.
+    Where the vocabulary does not divide over "model", the head splits
+    its contraction there instead (``use_weight``), and the Partial sum
+    is reduced before the softcap."""
+    x, w = product_operands(x, grad_onto_own_placements(
+        p.get("head", p["tok"])), x.dtype, ((1, -1),))
+    logits = shard(matmul_rows(x.float(), w.float().t()),
+                   "batch", "logits_seq", "vocab")
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    return shard(logits, "batch", "logits_seq", "vocab")
+    return logits

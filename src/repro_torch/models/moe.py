@@ -31,7 +31,10 @@ on either, ``cummax`` none on 2.11).  Per-row routing stays on
 the rows' ranks; global routing gathers every token first, as
 ``repro``'s one sort does.  The expert buffer is sharded over
 "experts" before the products, so a rank multiplies only its own
-experts.  Explicit expert parallelism (``cfg.moe_ep``) is
+experts, and the expert weights are gathered over "data" for them
+(``product_operands``): the buffer keeps its rows (where they do not
+divide over "data", the weights keep their shard there and the
+contraction is split instead).  Explicit expert parallelism (``cfg.moe_ep``) is
 ``moe_ep.moe_ffn_ep``, which falls back to ``moe_ffn`` without a mesh.
 """
 
@@ -44,7 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import PSpec
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import (constrain, matmul_rows,
+                                         product_operands, shard)
 
 Array = torch.Tensor
 
@@ -147,9 +151,12 @@ def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
     xe = buf.reshape(g, e, capacity, d).transpose(0, 1).reshape(
         e, g * capacity, d)
     xe = shard(xe, "experts", "batch", None)
-    h = (F.silu(torch.bmm(xe, p["w_gate"].to(x.dtype)))
-         * torch.bmm(xe, p["w_up"].to(x.dtype)))
-    out = torch.bmm(h, p["w_down"].to(x.dtype))
+    def product(a, name, *out):
+        a, w = product_operands(a, p[name], x.dtype, ((1, -1),), rows=1)
+        return constrain(torch.bmm(a, w), "experts", "batch", *out)
+
+    h = F.silu(product(xe, "w_gate", "ffn")) * product(xe, "w_up", "ffn")
+    out = product(h, "w_down", None)
     out = out.reshape(e, g, capacity, d).transpose(0, 1).reshape(
         g, e * capacity, d)
     out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
@@ -174,7 +181,9 @@ def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
 def moe_ffn(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array]:
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar)."""
     b, s, d = x.shape
-    logits = torch.matmul(x.float(), p["router"])
+    xf, router = product_operands(x.float(), p["router"], torch.float32,
+                                  ((0, -1),))
+    logits = constrain(matmul_rows(xf, router), "batch", "seq", "experts")
     weights, idx = _route(logits, cfg.experts_per_token)
 
     # load-balancing auxiliary loss (Switch-style), in float32; the one-hot

@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import PSpec, TensorSpec
-from repro_torch.models.sharding import on_local_shards, shard
+from repro_torch.models.sharding import (constrain, matmul_rows,
+                                         on_local_shards, on_own_rows,
+                                         product_operands, shard, use_weight)
 
 Array = torch.Tensor
 
@@ -58,20 +60,40 @@ def ssm_specs(cfg: ModelConfig) -> Dict:
 def _causal_conv(x: Array, kernel: Array) -> Array:
     """Depthwise causal conv. x: (B,S,C); kernel: (W,C)."""
     w, s = kernel.shape[0], x.shape[1]
+    kernel = use_weight(kernel, x.dtype)
     # the w - 1 leading zeros by cat, not F.pad: torch 2.11's DTensor
     # cannot plan pad's redistribution on the production layout
     zeros = torch.zeros_like(x[:, :1]).expand(-1, w - 1, -1)
     pad = torch.cat([zeros, x], dim=1)
     acc = torch.zeros_like(x)
     for i in range(w):
-        acc = acc + pad[:, i:i + s] * kernel[i].to(x.dtype)
+        acc = acc + pad[:, i:i + s] * kernel[i]
     return acc
 
 
+_PROJ_IN = (("w_z", "inner"), ("w_x", "inner"), ("w_B", "state"),
+            ("w_C", "state"), ("w_dt", "ssm_heads"))
+
+
 def _proj_in(cfg: ModelConfig, p: Dict, x: Array):
-    dt_f = x.dtype
-    return tuple(torch.matmul(x, p[n].to(dt_f))
-                 for n in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    """z, x, B, C, dt of x (B,S,D): each weight placed for its product
+    (``use_weight``), the Partial sums of the ones whole over "model"
+    (state, and heads that do not divide) reduced."""
+    return tuple(_product(x, p[n], "batch", "seq", axis)
+                 for n, axis in _PROJ_IN)
+
+
+def _product(x: Array, w: Array, *out) -> Array:
+    """x @ w, both placed for it (``product_operands``), the result
+    constrained to ``out``."""
+    x, w = product_operands(x, w, x.dtype, ((0, -1),))
+    return constrain(matmul_rows(x, w), *out)
+
+
+def _proj_out(p: Dict, y: Array) -> Array:
+    """The output projection of (B, S, d_inner) rows, its Partial sum
+    over the inner dimension reduced."""
+    return _product(y, p["w_out"], "batch", "seq", None)
 
 
 class _CumSum(torch.autograd.Function):
@@ -108,7 +130,18 @@ def ssd_chunked(cfg: ModelConfig, xh: Array, dt: Array, b: Array, c: Array,
                 ) -> Tuple[Array, Array]:
     """Chunked SSD scan.
     xh: (B,S,H,P); dt: (B,S,H) fp32; b,c: (B,S,N); a_log: (H,) fp32 (=A<0).
-    Returns (y (B,S,H,P), final_state (B,H,P,N))."""
+    Returns (y (B,S,H,P), final_state (B,H,P,N)).
+
+    On DTensors it runs on each rank's own rows and heads
+    (``on_own_rows``): rows, heads and chunks are independent but for
+    the heads' shared C·B products."""
+    if init_state is None:
+        own = on_own_rows(
+            lambda *a: ssd_chunked(cfg, *a), (xh, dt, b, c, a_log),
+            ((0, 2), (0, 2), (0, None), (0, None), (None, 0)),
+            ((0, 2), (0, 1)))
+        if own is not None:
+            return own
     bsz, s, h, pdim = xh.shape
     n = b.shape[-1]
     q = min(cfg.ssm_chunk, s)
@@ -178,7 +211,7 @@ def ssm_block(cfg: ModelConfig, p: Dict, x: Array,
     y = y + xh.float().to(y.dtype) * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, cfg.d_inner)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    out = _proj_out(p, y)
     if not return_cache:
         return out
     cache = {"conv_x": xin_r[:, s - (w - 1):],
@@ -225,7 +258,7 @@ def _conv_step(buf: Array, new: Array, kernel: Array) -> Tuple[Array, Array]:
     The W taps are summed in float32 and rounded once (``repro``'s
     contraction over W)."""
     win = torch.cat([buf, new[:, None]], dim=1)           # (B,W,C)
-    y = (win.float() * kernel.to(win.dtype).float()).sum(dim=1)
+    y = (win.float() * use_weight(kernel, win.dtype).float()).sum(dim=1)
     return y.to(win.dtype), win[:, 1:]
 
 
@@ -243,15 +276,25 @@ def ssm_decode_step(cfg: ModelConfig, p: Dict, x: Array, cache: Dict
 
     dt = F.softplus(dt.float() + p["dt_bias"])                    # (B,H)
     decay = torch.exp(dt * -torch.exp(p["A_log"]))                # (B,H)
-    xh = xin.reshape(bsz, h, pdim).float()
-    xdt = xh * dt[..., None]
-    state = cache["state"] * decay[:, :, None, None] + \
-        torch.einsum("bhp,bn->bhpn", xdt, b.float())
-    y = torch.einsum("bhpn,bn->bhp", state, c.float())
-    y = y + xh * p["D"][None, :, None]
-    y = y.reshape(bsz, cfg.d_inner).to(x.dtype)
+
+    # the heads stay flattened with their channels, (B, H*P): the inner
+    # dimension's "model" shard carries through the update, where a
+    # (B, H, P) view of it would be gathered (H does not divide); the
+    # values are the (B, H, P) form's, bit for bit
+    def per_channel(v: Array) -> Array:        # (..., H) -> (..., H*P)
+        return v[..., None].expand(*v.shape, pdim).reshape(
+            *v.shape[:-1], h * pdim)
+
+    xh = xin.float()                                              # (B,H*P)
+    xdt = xh * per_channel(dt)
+    state = cache["state"].reshape(bsz, h * pdim, -1) * \
+        per_channel(decay)[..., None] + xdt[..., None] * b.float()[:, None]
+    y = torch.einsum("bjn,bn->bj", state, c.float())
+    y = y + xh * per_channel(p["D"])
+    y = y.to(x.dtype)
+    state = state.reshape(cache["state"].shape)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    out = _proj_out(p, y[:, None])
     cache = {"conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c,
              "state": state}
-    return out[:, None], cache
+    return out, cache

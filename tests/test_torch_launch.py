@@ -415,8 +415,8 @@ def test_dryrun_decode_cell_end_to_end(arch, tmp_path):
     assert r["hbm_fit"] and r["device"] == "cpu"
     # model FLOPs over all ranks' counted FLOPs: at best ~1, at worst the
     # 16-wide "model" axis repeating each product, with 10 % for work
-    # outside model_flops (chip_smoke's LAUNCH_USEFUL_BAND); a count of
-    # the global program on each rank would read ~1/256
+    # outside model_flops; a count of the global program on each rank
+    # would read ~1/256
     assert 1 / (16 * 1.1) <= r["useful_ratio"] <= 1.1
     assert r["top_flops"][0][1] > 0
     # the cache's sequence is sharded over "model": the softmax partials

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.ckpt import save as j_save
 from repro.configs import smoke_config as j_smoke_config
 from repro.models import api as japi
 from repro.serve import Request as JRequest
@@ -122,15 +123,44 @@ def test_engine_needs_a_card_unless_told_otherwise(models):
         TEngine(models[1], models[3])
 
 
-def test_launcher_serves_on_the_cpu(capsys):
-    assert t_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                          "--requests", "3", "--max-new", "4"]) == 0
-    out = capsys.readouterr().out
-    assert out.startswith("3 requests, 12 tokens")
-    # checkpoints are not ported: the flag is refused, not ignored
-    with pytest.raises(SystemExit):
-        t_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                       "--ckpt-dir", "/nonexistent"])
+LAUNCH_ARGV = ["--arch", ARCH, "--smoke", "--device", "cpu", "--requests",
+               "3", "--max-new", "4"]
+
+
+def _launched_tokens(*extra):
+    reqs, _, _ = t_launch.serve(t_launch.parse_args(LAUNCH_ARGV + list(extra)))
+    return [r.tokens for r in reqs]
+
+
+def test_launcher_serves_on_the_cpu(capsys, tmp_path):
+    """The launcher serves its seeded parameters, and with ``--ckpt-dir``
+    a checkpoint that ``repro`` wrote (params only, as ``repro``'s
+    launcher restores it): token for token ``repro``'s engine on those
+    parameters and the launcher's requests."""
+    assert t_launch.main(LAUNCH_ARGV) == 0
+    assert capsys.readouterr().out.startswith("3 requests, 12 tokens")
+    jcfg = j_smoke_config(ARCH)
+    jp = japi.init_params(jcfg, jax.random.key(7))
+    ckpt = str(tmp_path / "ckpt")
+    j_save(ckpt, 5, {"params": jp})
+    assert t_launch.main(LAUNCH_ARGV + ["--ckpt-dir", ckpt]) == 0
+    assert capsys.readouterr().out.startswith("3 requests, 12 tokens")
+    je = JEngine(jcfg, jp, slots=4, max_len=256)
+    rng = np.random.default_rng(1)
+    jr = [je.submit(JRequest(rng.integers(16, jcfg.vocab_size, 16).tolist(),
+                             max_new_tokens=4, stop_at_eos=False))
+          for _ in range(3)]
+    je.run()
+    got = _launched_tokens("--ckpt-dir", ckpt)
+    assert got == [r.tokens for r in jr]
+    assert got != _launched_tokens()
+
+
+def test_launcher_keeps_seeded_params_without_a_checkpoint(tmp_path):
+    """A ``--ckpt-dir`` with no step in it keeps the seeded parameters,
+    as in ``repro``."""
+    assert _launched_tokens("--ckpt-dir", str(tmp_path)) == \
+        _launched_tokens()
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-130m",
