@@ -126,10 +126,11 @@ Phases, each fatal on failure:
  16. the distributed modules at world size 1: an NCCL group of one rank
      over a file store, a (1, 1) mesh, moe_ffn_ep against moe_ffn at
      olmoe's width (capacity 8.0), a 2-layer olmoe's loss with moe_ep on
-     and off, one Trainer step on the mesh with moe_ep,
-     psum_compressed against decompress(compress(g)), and a checkpoint
-     of the mesh's state restored onto a new mesh's placements,
-     bit-equal.
+     and off, one Trainer step with moe_ep on the mesh's production
+     layout, its loss and gradient norm bit-equal to the plain
+     Trainer's, psum_compressed against decompress(compress(g)), and a
+     checkpoint of the mesh's state restored onto a new mesh's
+     placements, bit-equal.
  17. the launch tooling (repro_torch.launch.dryrun, opcost, roofline,
      report) held to the card.  Three dry runs trace one after another,
      each in a child interpreter over its own fake process group with
@@ -146,7 +147,9 @@ Phases, each fatal on failure:
      bytes equal, its flash launches equal the dry run's flash sites (one
      a layer), and its FLOPs the dry run's less the plain flash
      version's at each site; (c) the 256-rank cell's row through
-     report.fmt_row, its useful_ratio within LAUNCH_USEFUL_BAND.
+     report.fmt_row, its useful_ratio within LAUNCH_USEFUL_BAND, and its
+     collective wire bytes a device, with the heaviest collectives
+     (top_wire), at most repro's (LAUNCH_WIRE_REPRO).
  18. the trainer's production layout (FSDP over "data", tensor
      parallelism over "model", every leaf of the state a DTensor), over
      an NCCL group of one rank and a (1, 1) mesh, TF32 on: (a) the
@@ -176,9 +179,11 @@ Phases, each fatal on failure:
      for capacity bit-equal, the state's bytes equal
      launch/dryrun.py::operand_layout's, each run's step time and (a)'s
      device busy share; (c) scripts/production_layout_2x2.py --cases
-     olmoe,jamba on the host's CPU (the card machine's torch), started
-     before (a): routing equal to one process, some pairs dropped, every
-     reading within the script's limits, rank 0's FLOPs as in 18 (c).
+     olmoe,jamba,olmoe_ep on the host's CPU (the card machine's torch),
+     started before (a): routing equal to one process and some pairs
+     dropped (olmoe_ep, moe_ep on the production layout: its hops run),
+     every reading within the script's limits, rank 0's FLOPs as in
+     18 (c).
 Each path (4-6, 7, 14, 8, 9, 10, 11, 12, 13, 15's four, 16, 17, 18, 19)
 runs with the launch counts set to 0 just before it and read just after;
 the kernels line gives each kernel's launches on the paths (feed,
@@ -3382,20 +3387,23 @@ def distributed_phase(dev, out_dir):
     (1, 1) mesh, and on it moe_ffn_ep against moe_ffn at olmoe's full
     width (capacity 8.0: no pair drops), a 2-layer olmoe's loss with
     moe_ep on and off, one Trainer step with moe_ep at the config's
-    capacity, psum_compressed against decompress(compress(g)), and a save
-    -> restore(shardings=remesh_shardings(...)) round trip, bit-equal."""
+    capacity on the production layout, its loss and gradient norm
+    bit-equal to the plain Trainer's step (the EP body on the mesh's
+    model axis of one rank, as its moe_ep layers run on plain tensors
+    under the mesh), psum_compressed against decompress(compress(g)),
+    and a save -> restore(shardings=remesh_shardings(...)) round trip,
+    bit-equal."""
     import torch.distributed as dist
     from repro_torch.ckpt import restore, save
     from repro_torch.models import api
     from repro_torch.models import moe as M
     from repro_torch.models import moe_ep as MEP
     from repro_torch.models.params import init_tree, tree_flatten
-    from repro_torch.models.sharding import sharding_ctx
+    from repro_torch.models.sharding import DEFAULT_RULES, sharding_ctx
     from repro_torch.runtime.elastic import build_mesh, remesh_shardings
     from repro_torch.train import OptConfig
     from repro_torch.train import compression as C
-    from repro_torch.train.steps import (global_state, train_layout_axes,
-                                         train_rules, train_state_shapes)
+    from repro_torch.train.steps import train_state_axes, train_state_shapes
     from repro_torch.train.trainer import Trainer, TrainerConfig
     root = os.path.abspath(os.path.join(out_dir, "distributed"))
     os.makedirs(root, exist_ok=True)
@@ -3454,29 +3462,47 @@ def distributed_phase(dev, out_dir):
         if not rel <= MOE_EP_LOSS_RTOL:
             raise AssertionError("the moe_ep loss differs")
         del params
-        # (c) one Trainer step on the mesh, moe_ep at the config's capacity
+        # (c) one Trainer step with moe_ep at the config's capacity on the
+        # production layout of the mesh, and the plain Trainer's on the
+        # same seed and batch (its plain tensors are the EP body's own
+        # under the mesh)
         cfg3 = family_train_cfg("moe", 2).replace(moe_ep=True)
         opt = OptConfig(lr=FAMILY_TRAIN_LR, warmup_steps=0, total_steps=1)
-        trainer = Trainer(cfg3, opt, TrainerConfig(steps=1, log_every=1,
-                                                   seed=TRAIN_SEED),
-                          device=dev, mesh=mesh)
         b2 = packed_row(4096, seed=4, vocab=cfg3.vocab_size)
-        t0 = time.perf_counter()
-        hist = trainer.run(iter([{k: np.concatenate([v, v]) for k, v in
-                                  b2.items()}]))
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        if int(trainer.state["step"]) != 1 or not np.isfinite(
-                [hist[-1]["loss"], hist[-1]["grad_norm"]]).all():
-            raise AssertionError(f"the moe_ep Trainer step: {hist}")
-        res["trainer_step"] = {"loss": hist[-1]["loss"],
-                               "grad_norm": hist[-1]["grad_norm"],
-                               "seconds": step_s,
+        b2 = {k: np.concatenate([v, v]) for k, v in b2.items()}
+        steps = {}
+        for name, m in (("production", mesh), ("plain", None)):
+            t = Trainer(cfg3, opt, TrainerConfig(steps=1, log_every=1,
+                                                 seed=TRAIN_SEED),
+                        device=dev, mesh=m)
+            t0 = time.perf_counter()
+            with sharding_ctx(mesh):
+                hist = t.run(iter([b2]))
+            torch.cuda.synchronize()
+            steps[name] = {"loss": hist[-1]["loss"],
+                           "grad_norm": hist[-1]["grad_norm"],
+                           "seconds": time.perf_counter() - t0,
+                           "layout": t.step_fn.layout,
+                           "step": int(t.state["step"])}
+            if m is None:
+                del t
+            else:
+                trainer = t
+        prod, plain = steps["production"], steps["plain"]
+        bit = (prod["loss"] == plain["loss"]
+               and prod["grad_norm"] == plain["grad_norm"])
+        res["trainer_step"] = {**prod, "plain": plain, "bit_equal": bit,
                                "capacity_factor": cfg3.capacity_factor}
-        log(f"distributed: one Trainer step on the (1, 1) mesh, 2-layer "
-            f"olmoe with moe_ep at capacity {cfg3.capacity_factor}, 2 x "
-            f"4,096 tokens: loss {hist[-1]['loss']:.4f}, grad_norm "
-            f"{hist[-1]['grad_norm']:.4f}, {step_s:.2f} s")
+        log(f"distributed: one Trainer step on the {prod['layout']} layout "
+            f"of the (1, 1) mesh, 2-layer olmoe with moe_ep at capacity "
+            f"{cfg3.capacity_factor}, 2 x 4,096 tokens: loss "
+            f"{prod['loss']:.6f}, grad_norm {prod['grad_norm']:.6f}, "
+            f"{prod['seconds']:.2f} s; the plain Trainer's {plain['loss']:.6f}"
+            f", {plain['grad_norm']:.6f}, {plain['seconds']:.2f} s: "
+            f"bit-equal {bit}")
+        if (prod["step"] != 1 or prod["layout"] != "production" or not bit
+                or not np.isfinite([prod["loss"], prod["grad_norm"]]).all()):
+            raise AssertionError(f"the moe_ep Trainer step: {steps}")
         # (d) psum_compressed at world size 1 is decompress(compress(g))
         g = {"a": torch.randn(3, 1000, generator=gen, device=dev),
              "b": torch.randn(17, 5, generator=gen, device=dev)}
@@ -3495,17 +3521,17 @@ def distributed_phase(dev, out_dir):
             raise AssertionError("psum_compressed at world size 1")
         # (e) save the trainer's state from the mesh, restore it onto a
         # new (1, 1) mesh's placements
-        shards = trainer.step_fn.shardings
         ck = os.path.join(root, "ckpt")
-        save(ck, 1, global_state(trainer.state, shards))
+        save(ck, 1, trainer.state)
         new_mesh = build_mesh(model_parallel=1, device=dev)
         plan = remesh_shardings(train_state_shapes(cfg3, opt),
-                                train_layout_axes(cfg3, opt), new_mesh,
-                                train_rules(cfg3))
+                                train_state_axes(cfg3, opt), new_mesh,
+                                DEFAULT_RULES)
         back = restore(ck, train_state_shapes(cfg3, opt), shardings=plan)
         pairs = list(zip(tree_flatten(back)[0],
                          tree_flatten(trainer.state)[0]))
-        equal = all(torch.equal(b.to_local(), s) for b, s in pairs)
+        equal = all(torch.equal(b.to_local(), s.to_local())
+                    for b, s in pairs)
         res["restore_bit_equal"] = equal
         res["restore_leaves"] = len(pairs)
         log(f"distributed: save -> restore(shardings=remesh_shardings(...)) "
@@ -3545,6 +3571,13 @@ LAUNCH_MEM_BAND = (0.97, 1.03)
 # placement read 0.18 (torch 2.11), and a count taken above DTensor
 # (1/256) or one that misses matmuls falls outside
 LAUNCH_USEFUL_BAND = (0.75, 1.1)
+# repro's collective wire bytes a device in the same 256-rank cell
+# (scripts/dryrun_side_by_side.py mamba2-130m:decode_32k:single, XLA on
+# 256 placeholder devices): the port's may not exceed them.  The port read
+# 237,584,640 before a decode step kept its SSM state and scores where
+# they lie and moved a weight's FSDP shard onto "model" by a permute, and
+# 20,524,800 after (torch 2.13.0+cpu)
+LAUNCH_WIRE_REPRO = 35_631_968
 LAUNCH_CHILD_TIMEOUT = 600
 
 
@@ -3789,9 +3822,13 @@ def launch_phase(dev, out_dir) -> tuple:
     log(f"launch (c): useful_ratio {sh['useful_ratio']:.4f} (band "
         f"{LAUNCH_USEFUL_BAND}); heaviest matmuls " + "; ".join(
             f"{k}: {f:.4g}" for k, f in sh["top_flops"][:4]))
+    wire = sh["roofline"]["wire_bytes_per_dev"]
+    log(f"launch (c): collective wire {wire:,.0f} B a device (repro's "
+        f"{LAUNCH_WIRE_REPRO:,}); heaviest collectives " + "; ".join(
+            f"{k}: {b:,.0f} B x {n}" for k, b, n in sh["top_wire"][:4]))
     if (sh["chips"] != 256 or sh["f64_leaks"] or not
             LAUNCH_USEFUL_BAND[0] <= sh["useful_ratio"]
-            <= LAUNCH_USEFUL_BAND[1]):
+            <= LAUNCH_USEFUL_BAND[1] or wire > LAUNCH_WIRE_REPRO):
         raise AssertionError(f"the sharded dry run: {sh}")
     res["sharded"] = sh
     res["dry_runs_s"] = dry_s
@@ -4076,7 +4113,9 @@ MOE_PROD_STEPS = 3
 # over phase 15's 2 x 4,096 tokens: more than 4,096 a step, so every row
 # routes on its own, as olmoe's in (a)
 MOE_PROD_JAMBA = {"arch": "jamba-1.5-large-398b", "seq": 4096, "batch": 2}
-MOE_PROD_2X2_CASES = ("olmoe", "jamba")    # (c), production_layout_2x2.py
+# (c), production_layout_2x2.py: olmoe_ep is olmoe with moe_ep on the
+# same layout, its MoE layers routed by explicit hops over "model"
+MOE_PROD_2X2_CASES = ("olmoe", "jamba", "olmoe_ep")
 
 
 def moe_production_run(dev, store, mesh, cfg, seq, batch, tag,
@@ -4215,12 +4254,20 @@ def moe_production_phase(dev, store, out_dir) -> dict:
         child = None
         res["gloo_2x2"] = report
         res["gloo_2x2_wait_s"] = time.perf_counter() - t0
+        routed = {n: c for n, c in report["cases"].items()
+                  if "routing_equal" in c}
+        hops = {n: c for n, c in report["cases"].items()
+                if "all_to_all" in c}
         log("moe production (c): routing equal to one process, dropped "
             "pairs of routed: " + ", ".join(
                 f"{n} {c['routing_equal']} {c['dropped']} of {c['pairs']}"
-                for n, c in report["cases"].items()))
-        if not all(c["routing_equal"] and c["dropped"] > 0
-                   for c in report["cases"].values()):
+                for n, c in routed.items())
+            + "; moe_ep all-to-alls on rank 0: " + ", ".join(
+                f"{n} {c['all_to_all']}" for n, c in hops.items()))
+        if (not all(c["routing_equal"] and c["dropped"] > 0
+                    for c in routed.values())
+                or not all(c["all_to_all"] > 0 for c in hops.values())
+                or len(routed) + len(hops) != len(MOE_PROD_2X2_CASES)):
             raise AssertionError(f"moe production (c): {report}")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False

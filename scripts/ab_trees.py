@@ -1,7 +1,7 @@
 """Time the port from two source trees in turns on one CUDA card.
 
     python3 scripts/ab_trees.py --base DIR
-        [--what kernels|paths|both|families]
+        [--what kernels|paths|both|families|production]
                                 [--turns base,this,this,base] [--out FILE]
 
 DIR is another checkout of this repository (for example an unpacked
@@ -22,7 +22,11 @@ directory).  ``--turns base`` measures the other tree alone.
   families phases 11 and 10's serving (mamba2-130m and olmoe-1b-7b
            whole, their requests) and phase 15's Trainer for the same
            two families (full width, olmoe cut to 4 of 16 layers), the
-           card-vs-CPU checks left out.
+           card-vs-CPU checks left out;
+  production phase 19 (a): olmoe-1b-7b at full width, 4 of 16 layers,
+           3 Trainer steps on the production layout of a (1, 1) mesh
+           (an NCCL group of one rank) beside the plain Trainer, TF32
+           on, without the profiled step.
 
 A tree whose segment_sum wrapper has no count mode counts through a column
 of ones, as its dispatch layer did.  Prints the card's name and power
@@ -115,6 +119,31 @@ def child(tree: str, what: str) -> dict:
             out[f"train_{fam}"] = {k: r[k] for k in (
                 "step_ms_median", "forward_backward_ms_median",
                 "optimizer_ms_median", "tokens_per_s")}
+    if what == "production":
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.core import RefStore
+        from repro_torch.core.enrich import queries as Q
+        from repro_torch.runtime.elastic import build_mesh
+        store = RefStore()
+        Q.make_reference_tables(store, scale=1.0, seed=cs.SEED_TABLES)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group("nccl", init_method="file://" + d
+                                    + "/pg", rank=0, world_size=1)
+            try:
+                spec = cs.FAMILY_TRAIN["moe"]
+                r = cs.moe_production_run(
+                    dev, store, build_mesh(model_parallel=1, device=dev),
+                    cs.family_train_cfg("moe"), spec["seq"], spec["batch"],
+                    "moe production (a)", profile=False)
+            finally:
+                dist.destroy_process_group()
+        out["production_step_s"] = r["production"]["step_s"]
+        out["plain_step_s"] = r["plain"]["step_s"]
+        out["bit_equal"] = r["bit_equal"]
     return out
 
 
@@ -123,7 +152,8 @@ def main() -> int:
     ap.add_argument("--base", required=True,
                     help="the other checkout's root")
     ap.add_argument("--what", default="both",
-                    choices=("kernels", "paths", "both", "families"))
+                    choices=("kernels", "paths", "both", "families",
+                             "production"))
     ap.add_argument("--turns", default="base,this,this,base",
                     help="comma-separated order of the trees' turns")
     ap.add_argument("--out", default=None, help="JSON file of all turns")

@@ -1,6 +1,7 @@
 """Two sets of the port's dry-run artifacts side by side, cell by cell.
 
-    PYTHONPATH=src python scripts/dryrun_compare.py BEFORE_DIR AFTER_DIR
+    PYTHONPATH=src python scripts/dryrun_compare.py BEFORE_DIR AFTER_DIR \
+        [--repro SIDE_BY_SIDE.json]
 
 Each directory holds ``<arch>__<shape>__<mesh>.json`` artifacts of
 ``python -m repro_torch.launch.dryrun --all --device cpu --out DIR``
@@ -10,7 +11,12 @@ roofline term, ``useful_ratio`` and GB a device (argument + temporary +
 output bytes), before -> after, single-pod mesh then multi-pod; then the
 cells whose per-device FLOPs rose, whose GB a device rose, whose
 dominant term changed, and whose argument bytes or fallbacks differ.
-Exits 1 if a cell's FLOPs rose or its argument bytes changed."""
+Then one row for each decode cell (decode_32k, long_500k): its
+collective wire bytes a device before -> after, single-pod and
+multi-pod, with ``repro``'s beside them where ``--repro`` names the
+``--out`` file of ``scripts/dryrun_side_by_side.py`` that read them, and
+the decode cells whose wire rose.  Exits 1 if a cell's FLOPs rose or its
+argument bytes changed."""
 
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("before")
     ap.add_argument("after")
+    ap.add_argument("--repro", help="scripts/dryrun_side_by_side.py's "
+                                    "--out file: repro's wire bytes")
     args = ap.parse_args(argv)
     print("| cell | FLOPs/dev single | FLOPs/dev multi | wire GB/dev "
           "single; multi | dominant | useful single; multi | GB/dev "
@@ -97,9 +105,45 @@ def main(argv=None) -> int:
     print("GB a device rose:", grew or "none")
     print("dominant term changed:", moved or "none")
     print("argument bytes or fallbacks differ:", differ or "none")
+    decode_wire(args, SHAPES, SWEEP_ORDER)
     return 1 if rose or any(
         load(args.before, *c.split())["arg"] !=
         load(args.after, *c.split())["arg"] for c in differ) else 0
+
+
+def decode_wire(args, shapes, archs) -> None:
+    """The decode cells' wire bytes a device, before -> after, and
+    repro's where read."""
+    repro = {}
+    if args.repro:
+        with open(args.repro) as fh:
+            for row in json.load(fh):
+                r = row["repro"]
+                if r.get("status") == "ok":
+                    repro[row["cell"]] = r["wire_bytes_per_dev"] / 1e9
+    print("\n| decode cell | wire GB/dev single: before -> after (repro) "
+          "| multi: before -> after (repro) |")
+    print("|---|---|---|")
+    rose = []
+    for arch in archs:
+        for shape, spec in shapes.items():
+            if spec.kind != "decode":
+                continue
+            parts = []
+            for m in ("single", "multi"):
+                b = load(args.before, arch, shape, m)
+                a = load(args.after, arch, shape, m)
+                if not (b and a and b["status"] == a["status"] == "ok"):
+                    parts.append("-")
+                    continue
+                if a["wire"] > b["wire"]:
+                    rose.append(f"{arch} {shape} {m}")
+                rw = repro.get(f"{arch}:{shape}:{m}")
+                parts.append(f"{b['wire']:.4g} -> {a['wire']:.4g}"
+                             + (f" ({rw:.4g})" if rw is not None else ""))
+            if parts != ["-", "-"]:
+                print(f"| {arch} {shape} | " + " | ".join(parts) + " |")
+    print("\ndecode wire rose:", rose or "none")
 
 
 if __name__ == "__main__":

@@ -5,12 +5,15 @@ placeholder CPU devices, costed by ``hlocost``) and the port's
 group, costed by ``opcost``), each in its own interpreter.
 
     PYTHONPATH=src python scripts/dryrun_side_by_side.py \\
-        mamba2-130m:decode_32k:single [ARCH:SHAPE:MESH ...] [--out FILE]
+        mamba2-130m:decode_32k:single [ARCH:SHAPE:MESH ...] [--out FILE] \\
+        [--cfg '{"moe_ep": true}']
 
 Prints per-device counts only (argument and temporary bytes, FLOPs, HBM
 bytes, collective wire bytes and counts, ``useful_ratio`` = model FLOPs /
 (per-device FLOPs x chips), and the port's heaviest matmuls by local
-shapes): they depend on the partitioned program, not on a chip.
+shapes and heaviest collectives by kind, group size and output shape,
+``top_flops`` and ``top_wire``): they depend on the partitioned program,
+not on a chip.
 ``repro``'s roofline seconds are for its TPU model and are not printed.
 ``repro``'s artifacts go to a temporary directory, never to its
 ``launch_artifacts/dryrun/``.  Runs on the CPU.
@@ -32,14 +35,16 @@ _REPRO = """
 import json, sys
 from repro.launch import dryrun as JD   # sets its placeholder devices
 JD.ART_DIR = {tmp!r}
-r = JD.run_cell({arch!r}, {shape!r}, {multi}, verbose=False)
+r = JD.run_cell({arch!r}, {shape!r}, {multi}, verbose=False,
+                cfg_overrides={cfg!r})
 print(json.dumps(r))
 """
 
 _PORT = """
 import json
 from repro_torch.launch import dryrun as TD
-r = TD.run_cell({arch!r}, {shape!r}, {multi}, verbose=False, device="cpu")
+r = TD.run_cell({arch!r}, {shape!r}, {multi}, verbose=False, device="cpu",
+                cfg_overrides={cfg!r})
 print(json.dumps(r))
 """
 
@@ -67,20 +72,24 @@ def counts(r: dict) -> dict:
             "wire_bytes_per_dev": rf["wire_bytes_per_dev"],
             "collectives": colls, "fallbacks": len(r["fallbacks"]),
             "useful_ratio": r["useful_ratio"],
-            **({"top_flops": r["top_flops"]} if "top_flops" in r else {})}
+            **{k: r[k] for k in ("top_flops", "top_wire") if k in r}}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("cells", nargs="+", help="ARCH:SHAPE:MESH")
     ap.add_argument("--out", help="write the rows as JSON here too")
+    ap.add_argument("--cfg", default=None,
+                    help='JSON ModelConfig overrides for both packages, '
+                         'e.g. {"moe_ep": true}')
     args = ap.parse_args(argv)
+    cfg = json.loads(args.cfg) if args.cfg else None
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for cell in args.cells:
             arch, shape, mesh = cell.split(":")
             kw = dict(arch=arch, shape=shape, multi=mesh == "multi",
-                      tmp=tmp)
+                      tmp=tmp, cfg=cfg)
             rows.append({"cell": cell,
                          "repro": counts(_run(_REPRO.format(**kw))),
                          "port": counts(_run(_PORT.format(**kw)))})

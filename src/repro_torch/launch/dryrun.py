@@ -32,7 +32,10 @@ compiler to ask, so it runs the step once, as one rank of the mesh:
     bytes they keep alive; ``launch/roofline.py`` turns that into the
     three terms.  ``top_flops`` lists the matmuls that weigh most, by
     local shapes: where ``useful_ratio`` is far below 1, it shows which
-    operand DTensor left unsharded.
+    operand DTensor left unsharded.  ``top_wire`` lists the collectives
+    that move most (kind, group size, output shape and dtype; wire
+    bytes a device; count): an all-gather whose output holds a whole
+    dimension that the operands shard is a tensor leaving its ranks.
 
 An op DTensor has no sharding strategy for fails the cell, with the op's
 name first in ``error``; nothing is replicated in its place.  A ``view``
@@ -74,9 +77,8 @@ from repro_torch.models.sharding import (allow_uneven_views,
                                          recorded_fallbacks, sharding_ctx,
                                          tree_shardings)
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import (make_train_step, train_layout,
-                                     train_shardings, train_state_axes,
-                                     train_state_shapes)
+from repro_torch.train.steps import (make_train_step, train_shardings,
+                                     train_state_axes, train_state_shapes)
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "launch_artifacts", "dryrun_torch")
@@ -172,17 +174,14 @@ def operand_layout(op_shapes, op_axes, mesh, rules=None, state=None):
 def cell_layout(cfg, shape, mesh, rules=None, microbatches: int = 1,
                 opt: OptConfig | None = None):
     """(fn, operand shapes, shardings, per-device argument bytes,
-    fallbacks) of one cell on ``mesh``.  A training cell of a config on
-    the production layout runs the trainer's step on the mesh with the
-    state on ``train_shardings``: what the dry run prices is what the
-    trainer runs.  A config that sets ``moe_ep`` (none published does)
-    keeps ``repro``'s rules for every operand and the step without a
-    mesh."""
-    production = shape.kind == "train" and \
-        train_layout(cfg) == "production"
+    fallbacks) of one cell on ``mesh``.  A training cell runs the
+    trainer's step on the mesh with the state on ``train_shardings``
+    (a ``moe_ep`` config's too): what the dry run prices is what the
+    trainer runs."""
+    train = shape.kind == "train"
     fn, op_shapes, op_axes = build_cell(cfg, shape, microbatches, opt,
-                                        mesh if production else None)
-    state = (cfg, opt or opt_for(cfg)) if production else None
+                                        mesh if train else None)
+    state = (cfg, opt or opt_for(cfg)) if train else None
     shardings, nbytes, fallbacks = operand_layout(op_shapes, op_axes, mesh,
                                                   rules, state)
     return fn, op_shapes, shardings, nbytes, fallbacks
@@ -347,6 +346,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         fallbacks=fallbacks,
         f64_leaks=f64[:5],
         top_flops=mc.top_flops(),
+        top_wire=mc.top_wire(),
         kernels=tr["kernels"],
         ops=mc.ops,
     )

@@ -26,7 +26,14 @@ size times too many.
     output.
   * collective wire bytes — per ``_c10d_functional`` collective (what
     DTensor issues), its output bytes times ``repro``'s ring factor for
-    its group's size (``WIRE_FACTOR``).
+    its group's size (``WIRE_FACTOR``).  An all-to-all that takes its
+    whole output from one rank and sends its whole input to one rank is
+    a permute (``models/sharding.py::_permuted``), XLA's
+    collective-permute: its output bytes, once.  They are also kept by
+    kind, mesh axis, group size, output shape and dtype (``wire_by_op``,
+    with ``wire_count_by_op``), the largest first in ``top_wire``: which
+    tensor moves, and over which group (an all-gather's output holds the
+    shards stacked along dimension 0).
 
 Only ops on tensors of one device type are counted (``device``): the dry
 run traces ``meta`` shards, and DTensor's own bookkeeping (index
@@ -114,17 +121,33 @@ def flop_kind(dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _named_group_size(name: str) -> int:
+def _named_group(name: str) -> Tuple[int, str]:
     from torch.distributed.distributed_c10d import _resolve_process_group
-    return _resolve_process_group(name).size()
+    return _group(_resolve_process_group(name))
 
 
-def _group_size(group) -> int:
-    """The size of a functional collective's group (its last positional
-    argument: a group name, or the group itself)."""
+def _group(group) -> Tuple[int, str]:
+    """(size, mesh axis) of a functional collective's group (its last
+    positional argument: a group name, or the group itself); the axis is
+    the mesh dimension a ``DeviceMesh`` made the group for ("data",
+    "model"), else "world" or the group's own description."""
     if isinstance(group, str):
-        return _named_group_size(group)
-    return group.size()
+        return _named_group(group)
+    desc = getattr(group, "group_desc", "") or ""
+    axis = desc.removeprefix("mesh_") if desc.startswith("mesh_") else \
+        "world" if desc == "default_pg" else desc or "?"
+    return group.size(), axis
+
+
+def _is_permute(args) -> bool:
+    """An ``all_to_all_single(input, output_split_sizes,
+    input_split_sizes, group)`` whose output comes from one rank and
+    whose input goes to one: a permute."""
+    out_splits, in_splits = args[1], args[2]
+    return (isinstance(out_splits, (list, tuple)) and
+            isinstance(in_splits, (list, tuple)) and
+            sum(1 for s in out_splits if s) == 1 and
+            sum(1 for s in in_splits if s) == 1)
 
 
 @dataclasses.dataclass
@@ -142,10 +165,19 @@ class ModuleCost:
     flops_by_dtype: Dict[str, float] = dataclasses.field(
         default_factory=dict)
     flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
+    wire_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
+    wire_count_by_op: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     def top_flops(self, n: int = 10) -> List[Tuple[str, float]]:
         """The ``n`` (op and local shapes, FLOPs) that weigh most."""
         return sorted(self.flops_by_op.items(), key=lambda kv: -kv[1])[:n]
+
+    def top_wire(self, n: int = 10) -> List[Tuple[str, float, int]]:
+        """The ``n`` (kind, mesh axis, group size, output shape and
+        dtype; wire bytes; count) that move most."""
+        return [(k, b, self.wire_count_by_op[k]) for k, b in sorted(
+            self.wire_by_op.items(), key=lambda kv: -kv[1])[:n]]
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -197,12 +229,21 @@ class OpCounter(TorchDispatchMode):
             c.float64_ops.append(str(func))
         if ns in _COLLECTIVE_NS and name in _COLLECTIVES:
             kind = _COLLECTIVES[name]
+            if kind == "all-to-all" and _is_permute(args):
+                kind = "collective-permute"
             out_b = sum(tensor_bytes(o) for o in outs)
-            n = max(_group_size(args[-1]), 2)
-            c.wire_bytes += WIRE_FACTOR[kind](n) * out_b
+            size, axis = _group(args[-1])
+            n = max(size, 2)
+            wire = WIRE_FACTOR[kind](n) * out_b
+            c.wire_bytes += wire
             c.coll_out_bytes += out_b
             c.coll_counts[kind] = c.coll_counts.get(kind, 0) + 1
             c.hbm_bytes += 2.0 * out_b
+            key = " ".join([kind, axis, f"n={n}"] + [
+                f"{tuple(o.shape)} {str(o.dtype).removeprefix('torch.')}"
+                for o in outs])
+            c.wire_by_op[key] = c.wire_by_op.get(key, 0.0) + wire
+            c.wire_count_by_op[key] = c.wire_count_by_op.get(key, 0) + 1
             return
         if func.overloadpacket in _FLOP_OPS:
             from torch.utils.flop_counter import flop_registry

@@ -15,9 +15,9 @@ the card, gloo on the CPU.  ``build_mesh`` lays the ranks out as (world /
 model_parallel, model_parallel).  Every published config trains on
 ``repro``'s production layout, as ``repro``'s launcher trains it: its
 state DTensors sharded FSDP-style over "data", tensor- and
-expert-parallel over "model" (``layout=production``); a config that
-sets ``moe_ep`` trains its experts expert-parallel over the model axis,
-every other weight replicated (``layout=moe_ep``).  Rank 0 runs the LM
+expert-parallel over "model" (``layout=production``; a config that
+sets ``moe_ep`` routes its MoE tokens by explicit hops over "model" on
+that layout).  Rank 0 runs the LM
 data plane and broadcasts each global batch (with two feed partitions
 the row order is not promised to be the same across processes, so the
 ranks do not each run a feed); each rank wraps its own rows of it.
@@ -35,10 +35,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import api
-from repro_torch.models.sharding import sharding_ctx
+from repro_torch.models.sharding import DEFAULT_RULES, sharding_ctx
 from repro_torch.runtime.elastic import build_mesh
 from repro_torch.train import OptConfig
-from repro_torch.train.steps import train_layout, train_rules
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -111,7 +110,7 @@ def main(argv=None):
     if rank == 0:
         shape = "none" if mesh is None else dict(
             zip(mesh.mesh_dim_names, mesh.shape))
-        layout = "none" if mesh is None else train_layout(cfg)
+        layout = "none" if mesh is None else "production"
         print(f"arch={cfg.name} params~{api.param_count(cfg)/1e6:.1f}M "
               f"device={dev} mesh={shape} moe_ep={cfg.moe_ep} "
               f"layout={layout}", flush=True)
@@ -126,7 +125,7 @@ def main(argv=None):
     try:
         # every rank takes as many batches as the others: the run ends on
         # the same step everywhere, or on the end rank 0 broadcast
-        with sharding_ctx(mesh, train_rules(cfg)):
+        with sharding_ctx(mesh, DEFAULT_RULES):
             trainer = Trainer(cfg, opt, tcfg, device=dev, mesh=mesh)
             history = trainer.run(batches)
     finally:

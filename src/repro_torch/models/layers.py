@@ -34,7 +34,8 @@ from repro_torch.models.params import PSpec
 from repro_torch.models.sharding import (constrain, grad_onto_own_placements,
                                          heads_where_free, matmul_rows,
                                          on_own_rows, product_operands,
-                                         shard, use_weight, whole_where)
+                                         shard, softmax_last, use_weight,
+                                         whole_where)
 
 Array = torch.Tensor
 
@@ -419,7 +420,7 @@ def attention_decode(cfg: ModelConfig, p: Dict, x: Array, pos: Array,
     valid = (torch.arange(smax, device=x.device)[None]
              <= pos[:, None])                          # (B,Smax)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = softmax_last(scores)
     out = _gqa_out(probs, vc)                         # (B,1,H,D)
     out = constrain(out, "batch", "act_seq", "heads", None)
     return _proj_out(out, p["wo"], x.dtype), k_cache, v_cache

@@ -15,9 +15,10 @@ the "model" axis by two ``all_to_all``s:
     4. all_to_all the outputs back into the slots they were sent from,
        and combine them with the router weights
 
-The hops use ``torch.distributed.nn.functional.all_to_all_single``,
-which carries autograd (its backward sends the cotangents back the same
-way), so the experts train.  The numerics are ``repro``'s EP body's, not
+The hops are ``torch.distributed._functional_collectives``'
+``all_to_all_single_autograd`` (its backward sends the cotangents back
+the same way), so the experts train and the dry run's op counter sees
+and prices them.  The numerics are ``repro``'s EP body's, not
 ``moe.moe_ffn``'s: the router product takes the router in the activation
 dtype with float32 accumulation; the capacities are per hop
 (``cap_send``, then ``cap_e`` with 1.25 over-provision when a shard
@@ -28,10 +29,12 @@ routing order.  Every sort is stable, as ``jnp.argsort``.
 Without an active mesh, without ``axis`` on it, or when the experts do
 not divide over it, this is ``moe.moe_ffn`` (``repro``'s fallback).
 
-The expert weights a rank passes are its own E/M experts, the rank's
-slice along E (the trainer's state holds each rank's slice of every
-expert leaf: ``to_local()`` of the leaf as a DTensor sharded over
-"model"); the router is whole on every rank.
+On the production layout's DTensors the body runs on local shards with
+``repro``'s ``shard_map`` in_specs (``_on_shards``): x's rows split over
+the batch axes, the router whole, the experts split along E over
+"model" (their FSDP shard over "data" gathered).  Plain tensors under a
+mesh are taken as the body's own arguments: this rank's rows, the whole
+router and this rank's E/M experts.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as M
-from repro_torch.models.sharding import current_mesh, mesh_shape
+from repro_torch.models.sharding import (current_mesh, live_placements,
+                                         mesh_shape, placements, spec_for)
 
 Array = torch.Tensor
 
@@ -80,20 +84,54 @@ def _sort_bucket(values: Array, keys: Array, num_buckets: int,
 def _hop(x: Array, group) -> Array:
     """Block i of ``x`` (dim 0, split evenly) to rank i of ``group``;
     differentiable."""
-    from torch.distributed.nn.functional import all_to_all_single
-    x = x.contiguous()
-    return all_to_all_single(torch.empty_like(x), x, group=group)
+    from torch.distributed import _functional_collectives as fc
+    return fc.all_to_all_single_autograd(x.contiguous(), None, None, group)
+
+
+class _ModelMean(torch.autograd.Function):
+    """``jax.lax.pmean`` over ``group``: the mean of every rank's value,
+    whose transpose is the same mean of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        from torch.distributed import _functional_collectives as fc
+        ctx.group, ctx.n = group, n
+        return fc.wait_tensor(fc.all_reduce(x, "sum", group)) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as fc
+        return (fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
+                                             ctx.group)) / ctx.n,
+                None, None)
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, its gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 def moe_ffn_ep(cfg: ModelConfig, p: Dict, x: Array,
                axis: str = "model") -> Tuple[Array, Array]:
     """Drop-in for ``moe.moe_ffn`` when a mesh with ``axis`` is active.
-    x: this rank's (B_l, S, D) rows; the experts of ``p`` this rank's
-    E/M -> (out (B_l, S, D), aux scalar)."""
+    On DTensors (the production layout): x (B, S, D) and the leaves of
+    ``p`` as the trainer holds them -> (out on x's placements, aux).  On
+    plain tensors: this rank's (B_l, S, D) rows and E/M experts ->
+    (out (B_l, S, D), aux scalar)."""
     mesh = current_mesh()
     sizes = mesh_shape(mesh) if mesh is not None else {}
     if axis not in sizes or cfg.num_experts % sizes[axis] != 0:
         return M.moe_ffn(cfg, p, x)
+    if hasattr(x, "placements"):
+        return _on_shards(cfg, mesh, axis, p, x)
     m_sz = sizes[axis]
     w = [p[n].to(x.dtype) for n in ("w_gate", "w_up", "w_down")]
     if w[0].shape[0] != cfg.num_experts // m_sz:
@@ -103,11 +141,63 @@ def moe_ffn_ep(cfg: ModelConfig, p: Dict, x: Array,
     return _ep_body(cfg, mesh.get_group(axis), m_sz, x, p["router"], *w)
 
 
+def _on_shards(cfg: ModelConfig, mesh, axis: str, p: Dict, x: Array
+               ) -> Tuple[Array, Array]:
+    """The body on the local shards of the production layout's DTensors,
+    as ``repro``'s ``shard_map`` places its operands: x's rows split over
+    the batch axes (the rules' "batch"), replicated elsewhere; the router
+    whole; the experts, cast first, split along E over ``axis`` and
+    gathered elsewhere.  Every rank of an ``axis`` group holds the same
+    rows and routes them alike, so x's and the router's gradients are
+    each rank's own over ``axis``, and ``Partial`` over the batch axes
+    (each data rank saw its own rows); an expert receives each pair once
+    from every rank of the group, so its gradient is scaled by 1/M, and
+    is ``Partial`` over the batch axes.  y leaves on x's placements, aux
+    as the mean of the data ranks' estimates (a ``Partial`` sum of each
+    over their count)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    j = mesh.mesh_dim_names.index(axis)
+    m_sz = mesh.size(j)
+    rows = live_placements(placements(spec_for(
+        x.shape, ("batch",), record=False), mesh), mesh)
+    split = [k for k, q in enumerate(rows) if q.is_shard()]
+    n_split = 1
+    for k in split:
+        n_split *= mesh.size(k)
+    summed = tuple(Partial() if k in split else Replicate()
+                   for k in range(mesh.ndim))
+    whole = (Replicate(),) * mesh.ndim
+
+    def local(t: Array, pl, grad_pl) -> Array:
+        if tuple(t.placements) != tuple(pl):
+            t = t.redistribute(mesh, pl)
+        return t.to_local(grad_placements=grad_pl)
+
+    xl = local(x, rows, rows)
+    router = local(p["router"], whole, summed)
+    experts = tuple(Shard(0) if k == j else Replicate()
+                    for k in range(mesh.ndim))
+    expert_grads = tuple(Shard(0) if k == j else q
+                         for k, q in enumerate(summed))
+    w = [local(p[n].to(x.dtype), experts, expert_grads)
+         for n in ("w_gate", "w_up", "w_down")]
+    if m_sz > 1:
+        w = [_GradScale.apply(t, 1.0 / m_sz) for t in w]
+    y, aux = _ep_body(cfg, mesh.get_group(axis), m_sz, xl, router, *w)
+    y = DTensor.from_local(y, mesh, rows, run_check=False, shape=x.shape,
+                           stride=x.stride())
+    if tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(mesh, x.placements)
+    aux = DTensor.from_local(aux / n_split if n_split > 1 else aux, mesh,
+                             summed, run_check=False, shape=aux.shape,
+                             stride=aux.stride())
+    return y, aux
+
+
 def _ep_body(cfg: ModelConfig, group, m_sz: int, x: Array, router: Array,
              wg: Array, wu: Array, wd: Array) -> Tuple[Array, Array]:
     """One rank's body.  x: (B_l, S, D) local tokens; wg/wu/wd: its
     (E_l, D, F) / (E_l, F, D) experts."""
-    import torch.distributed.nn.functional as dnn
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     e_l = e // m_sz
@@ -125,7 +215,8 @@ def _ep_body(cfg: ModelConfig, group, m_sz: int, x: Array, router: Array,
     experts = torch.arange(e, device=dev)
     frac_tokens = torch.mean((idx[:, :1] == experts).float(), dim=0)
     aux = e * torch.sum(frac_tokens * torch.mean(probs, dim=0))
-    aux = dnn.all_reduce(aux, group=group) / m_sz
+    if m_sz > 1:
+        aux = _ModelMean.apply(aux, group, m_sz)
 
     # ---- hop 1: pairs -> the shard owning their expert (features and
     # local expert ids bucketed alike, so the slots line up) ----

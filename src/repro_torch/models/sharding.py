@@ -21,8 +21,8 @@ without a mesh) and redistributes a DTensor to the spec's placements
 layout (``train/steps.py``) runs the model code on DTensors placed by
 these rules, and there ``shard`` redistributes as GSPMD's constraint
 does, MoE layers included ("experts" over "model"); a config that sets
-``moe_ep`` keeps the explicit expert parallelism of
-``models/moe_ep.py``.
+``moe_ep`` routes its MoE tokens by ``models/moe_ep.py``'s explicit
+hops on the same layout.
 
 Each weight is placed at its use as ``repro``'s partitioned program
 places it, not by DTensor's least-redistribution choice, which leaves
@@ -307,10 +307,93 @@ def _weight_target(w: torch.Tensor, contract: Tuple[int, ...],
 
 
 def _placed(w: torch.Tensor, target) -> torch.Tensor:
-    """``w`` redistributed onto ``target`` (DTensor's own move)."""
+    """``w`` redistributed onto ``target``: a shard moved from one mesh
+    dimension to another of the same size by a permute (``_permuted``),
+    else DTensor's own move."""
     if tuple(target) == tuple(w.placements):
         return w
+    pair = _permute_pair(w, target)
+    if pair is not None:
+        return _Permute.apply(w, tuple(target), *pair)
     return w.redistribute(w.device_mesh, target)
+
+
+def _permute_pair(w: torch.Tensor, target) -> Optional[Tuple[int, int]]:
+    """(i, j) where ``w`` is ``Shard(c)`` over mesh dimension i and
+    replicated over j, ``target`` the other way round, the two of one
+    size, every other placement the same and none sharding c, on a mesh
+    that spans the process group's world (its ranks are the world's);
+    else None.  DTensor's redistribute would gather the whole of ``w``
+    over i and slice it over j: 1/n of it moves by a permute."""
+    import torch.distributed as dist
+    mesh = w.device_mesh
+    src, dst = tuple(w.placements), tuple(target)
+    moved = [k for k in range(mesh.ndim) if src[k] != dst[k]]
+    if len(moved) != 2 or mesh.mesh.numel() != dist.get_world_size():
+        return None
+    i, j = moved if src[moved[0]].is_shard() else moved[::-1]
+    if not (src[i].is_shard() and dst[i].is_replicate()
+            and src[j].is_replicate() and dst[j].is_shard(src[i].dim)
+            and mesh.size(i) == mesh.size(j)):
+        return None
+    c = src[i].dim
+    if any(p.is_shard(c) for k, p in enumerate(src) if k != i):
+        return None
+    return i, j
+
+
+def _permuted(local: torch.Tensor, mesh, i: int, j: int) -> torch.Tensor:
+    """This rank's ``local`` sent to the rank whose coordinates over
+    mesh dimensions i and j are this rank's swapped, and that rank's
+    received: an involution, so one all-to-all over the world with one
+    nonzero split each way (a collective-permute; to itself on the
+    diagonal)."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as fc
+    coord = list(mesh.get_coordinate())
+    coord[i], coord[j] = coord[j], coord[i]
+    splits = [0] * dist.get_world_size()
+    splits[int(mesh.mesh[tuple(coord)])] = local.numel()
+    out = fc.all_to_all_single(local.contiguous().reshape(-1), splits,
+                               splits, dist.group.WORLD)
+    return fc.wait_tensor(out).view(local.shape)
+
+
+class _Permute(torch.autograd.Function):
+    """A weight's ``Shard(c)`` over mesh dimension i (its FSDP shard over
+    "data") moved onto j ("model"), where ``_weight_target`` splits a
+    contraction: rank (d, m) takes chunk m of dimension c from a rank
+    whose coordinate over i is m, rank (m, d), which holds it (XLA's
+    collective-permute), in place of DTensor's gather of the whole
+    weight over i and slice over j.  The backward is the same permute:
+    the gradient, each rank's rows' part over i and chunk m over j,
+    comes back as chunk d over i, each rank's part over j (``Partial``):
+    reduced over j, it is the FSDP shard's gradient.  The same with and
+    without autograd."""
+
+    @staticmethod
+    def forward(ctx, w, target, i, j):
+        from torch.distributed.tensor import DTensor
+        mesh = w.device_mesh
+        ctx.src, ctx.dst, ctx.ij = tuple(w.placements), target, (i, j)
+        return DTensor.from_local(_permuted(w.to_local(), mesh, i, j), mesh,
+                                  target, run_check=False, shape=w.shape,
+                                  stride=w.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+        i, j = ctx.ij
+        mesh = g.device_mesh
+        want = list(ctx.dst)
+        want[i] = Partial()
+        if tuple(g.placements) != tuple(want):
+            g = g.redistribute(mesh, want)
+        back = list(ctx.src)
+        back[j] = Partial()
+        return (DTensor.from_local(_permuted(g.to_local(), mesh, i, j), mesh,
+                                   back, run_check=False, shape=g.shape,
+                                   stride=g.stride()), None, None, None)
 
 
 def _contract_with(x: torch.Tensor, w: torch.Tensor,
@@ -427,6 +510,37 @@ def whole_where(x: torch.Tensor, other: torch.Tensor,
     if target == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, target)
+
+
+def placed_as(x: torch.Tensor, ref: torch.Tensor, dims: int
+              ) -> torch.Tensor:
+    """``x`` on ``ref``'s placements over ``ref``'s first ``dims``
+    dimensions, whose meaning ``x``'s share (rows, then heads), and
+    replicated where ``ref`` shards a later one: a small per-row value
+    moved to where a large one lies (a decode step's SSM state), so that
+    the large one stays on its rank.  ``x`` itself elsewhere."""
+    if not (hasattr(x, "placements") and hasattr(ref, "placements")):
+        return x
+    from torch.distributed.tensor import Replicate
+    target = tuple(p if p.is_shard() and p.dim < dims else Replicate()
+                   for p in ref.placements)
+    if target == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def softmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.softmax`` over the last dimension.  On a DTensor sharded
+    along it (a decode step's scores over the cache's sequence) the max
+    and the sum are taken on each shard and reduced over the mesh
+    (flash-decoding's partials, as ``repro``'s partitioned softmax
+    reduces them), so that the scores do not move: DTensor's own
+    softmax strategy gathers the sequence whole."""
+    if not (hasattr(x, "placements")
+            and any(p.is_shard(x.dim() - 1) for p in x.placements)):
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def heads_where_free(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

@@ -32,7 +32,8 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import PSpec, TensorSpec
 from repro_torch.models.sharding import (constrain, matmul_rows,
                                          on_local_shards, on_own_rows,
-                                         product_operands, shard, use_weight)
+                                         placed_as, product_operands, shard,
+                                         use_weight)
 
 Array = torch.Tensor
 
@@ -278,21 +279,29 @@ def ssm_decode_step(cfg: ModelConfig, p: Dict, x: Array, cache: Dict
     decay = torch.exp(dt * -torch.exp(p["A_log"]))                # (B,H)
 
     # the heads stay flattened with their channels, (B, H*P): the inner
-    # dimension's "model" shard carries through the update, where a
-    # (B, H, P) view of it would be gathered (H does not divide); the
-    # values are the (B, H, P) form's, bit for bit
+    # dimension's "model" shard carries through y, where a (B, H, P) view
+    # of it would be gathered (H does not divide); the values are the
+    # (B, H, P) form's, bit for bit
     def per_channel(v: Array) -> Array:        # (..., H) -> (..., H*P)
         return v[..., None].expand(*v.shape, pdim).reshape(
             *v.shape[:-1], h * pdim)
 
-    xh = xin.float()                                              # (B,H*P)
-    xdt = xh * per_channel(dt)
-    state = cache["state"].reshape(bsz, h * pdim, -1) * \
-        per_channel(decay)[..., None] + xdt[..., None] * b.float()[:, None]
-    y = torch.einsum("bjn,bn->bj", state, c.float())
-    y = y + xh * per_channel(p["D"])
+    # the update runs where the state lies (each rank's rows, its heads
+    # whole where they do not divide), so the state leaves on the cache's
+    # placements: the small per-row inputs move to it, and the product
+    # with C takes the state's slice on x's inner shard
+    prev = cache["state"]
+    xf = xin.float()                                              # (B,H*P)
+    xh = placed_as(xf, prev, 2)
+    xdt = xh * per_channel(placed_as(dt, prev, 2))
+    state = prev.reshape(bsz, h * pdim, -1) * \
+        per_channel(placed_as(decay, prev, 2))[..., None] + \
+        xdt[..., None] * placed_as(b.float(), prev, 1)[:, None]
+    y = torch.einsum("bjn,bn->bj", placed_as(state, xf, 2),
+                     placed_as(c.float(), xf, 1))
+    y = y + xf * per_channel(p["D"])
     y = y.to(x.dtype)
-    state = state.reshape(cache["state"].shape)
+    state = state.reshape(prev.shape)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = _proj_out(p, y[:, None])
     cache = {"conv_x": conv_x, "conv_B": conv_b, "conv_C": conv_c,

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -115,15 +115,13 @@ def _write(dst: Tensor, src: Tensor) -> None:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params: Any, grads: Any,
-                 opt_state: Dict[str, Any], step: Tensor,
-                 grad_norm: Optional[Tensor] = None
+                 opt_state: Dict[str, Any], step: Tensor
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Tensor]]:
     """One AdamW step at ``step`` (0-d int tensor, before the increment).
     Writes into ``params`` and ``opt_state`` and returns them with
-    {"grad_norm", "lr"}.  ``grad_norm`` is the clipping norm when the
-    caller has it (a rank of a mesh holds a slice of some gradients);
-    by default the global norm of ``grads``."""
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
+    {"grad_norm", "lr"}, the clipping norm the global norm of
+    ``grads``."""
+    gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     lr = schedule(cfg, step)

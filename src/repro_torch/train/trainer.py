@@ -11,18 +11,15 @@
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``.
 With ``mesh`` (one process a rank; ``runtime.elastic.build_mesh``) every
-rank runs the same loop over the same global batches, on the step's
-``train_layout``.  On the production layout (every config that does
-not set ``moe_ep``, MoE and hybrid ones included) the state is the
-DTensor tree of ``repro``'s production placements (FSDP over "data",
-tensor and expert parallelism over "model"): drawn leaf by leaf and cut
-to this rank's shards, so no rank ever holds the whole state;
-checkpoints gather one leaf at a time (rank 0 writes ``repro``'s
-layout) and restore onto the mesh's placements through
-``remesh_shardings``, so a checkpoint written on one mesh trains on
-another.  On moe_ep (a config that sets ``moe_ep``) the state holds
-this rank's slices (``steps.local_state``).  A step that fails on one
-rank only is not recovered across the mesh: the others wait in its
+rank runs the same loop over the same global batches, on ``repro``'s
+production layout, whatever the config: the state is the DTensor tree
+of ``repro``'s production placements (FSDP over "data", tensor and
+expert parallelism over "model"), drawn leaf by leaf and cut to this
+rank's shards, so no rank ever holds the whole state; checkpoints
+gather one leaf at a time (rank 0 writes ``repro``'s layout) and
+restore onto the mesh's placements through ``remesh_shardings``, so a
+checkpoint written on one mesh trains on another.  A step that fails on
+one rank only is not recovered across the mesh: the others wait in its
 collectives.
 """
 
@@ -39,10 +36,8 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import tree_map
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import (global_state, init_train_state,
-                                     local_state, make_train_step,
+from repro_torch.train.steps import (init_train_state, make_train_step,
                                      train_state_shapes)
 
 log = logging.getLogger(__name__)
@@ -110,43 +105,31 @@ class Trainer:
         return self._init_state()
 
     def _init_state(self):
-        """The seed's state: on the production layout drawn as this
-        rank's shards, leaf by leaf; on moe_ep the whole state (the same
-        on every rank) cut to this rank's slices."""
+        """The seed's state: on a mesh drawn as this rank's shards, leaf
+        by leaf."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        if self.step_fn.production:
-            return init_train_state(self.model_cfg, self.opt_cfg, gen,
-                                    self.step_fn.shardings)
-        state = init_train_state(self.model_cfg, self.opt_cfg, gen)
-        if self.mesh is not None:
-            state = local_state(state, self.step_fn.shardings)
-        return state
+        return init_train_state(self.model_cfg, self.opt_cfg, gen,
+                                self.step_fn.shardings
+                                if self.mesh is not None else None)
 
     # ----------------------------------------------------------------- ckpt
     def _save(self, step: int) -> None:
         if self.ckpt is not None:
-            state = self.state
-            if self.step_fn.layout == "moe_ep":
-                state = global_state(state, self.step_fn.shardings)
-            self.ckpt.save(step, state)
+            self.ckpt.save(step, self.state)
 
     def _restore(self):
         """The latest checkpoint onto this trainer's layout: whole leaves
         on the device without a mesh; on a mesh each rank reads its
         shards of ``step_fn.shardings`` (``remesh_shardings`` of this
-        mesh), kept as DTensors on the production layout and as local
-        slices on moe_ep."""
+        mesh), as DTensors."""
         step = latest_step(self.tcfg.ckpt_dir)
         log.warning("restoring from checkpoint step %s", step)
         whole = train_state_shapes(self.model_cfg, self.opt_cfg)
         if self.mesh is None:
             return restore(self.tcfg.ckpt_dir, whole, step,
                            device=self.device)
-        state = restore(self.tcfg.ckpt_dir, whole, step,
-                        shardings=self.step_fn.shardings)
-        if self.step_fn.production:
-            return state
-        return tree_map(lambda x: x.to_local(), state)
+        return restore(self.tcfg.ckpt_dir, whole, step,
+                       shardings=self.step_fn.shardings)
 
     # ------------------------------------------------------------------ run
     def _step(self, batch: Dict, wait_s: float) -> Dict:

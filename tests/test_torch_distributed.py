@@ -194,13 +194,45 @@ def test_param_tree_shardings_match_repro_at_full_width(arch, shape):
         state = tree_flatten(sh)[0]
         jo = JO.OptConfig(**opt_kw)
         jcfg = j_get_config(arch)
-        assert TS.train_layout(cfg) == "production"
         with JSH.sharding_ctx(jm):
             axes = jax.tree.leaves(JS.train_state_axes(jcfg, jo),
                                    is_leaf=lambda x: isinstance(x, tuple))
             want = [JSH.spec_for(x.shape, a) for x, a in zip(
                 jax.tree.leaves(JS.train_state_shapes(jcfg, jo)), axes)]
         assert [g.spec for g in state] == [tuple(w) for w in want]
+        for g in state:
+            for d, name in enumerate(("data", "model")):
+                dims = [i for i, a in enumerate(g.spec)
+                        if a == name or isinstance(a, tuple) and name in a]
+                assert g.placements[d] == (
+                    Shard(dims[0]) if dims and shape[d] > 1
+                    else Replicate())
+
+
+@pytest.mark.parametrize("shape", [(2, 4), (1, 8), (8, 1)])
+def test_moe_ep_train_shardings_match_repro(shape):
+    """olmoe with ``moe_ep`` trains on the production layout: its
+    ``train_shardings`` (plain and factored second moment) are repro's
+    specs of every leaf, the router's ("embed", "experts") and the
+    experts' included, on the meshes of
+    test_param_tree_shardings_match_repro_at_full_width (repro keeps a
+    moe_ep config's leaves on DEFAULT_RULES; only its MoE FFN runs under
+    shard_map)."""
+    from torch.distributed.tensor import Replicate, Shard
+    cfg = t_get_config("olmoe-1b-7b").replace(moe_ep=True)
+    jcfg = j_get_config("olmoe-1b-7b").replace(moe_ep=True)
+    tm, jm = _t_mesh(shape), _j_mesh(shape)
+    for opt_kw in ({}, {"factored_v": True, "state_dtype": "bfloat16"}):
+        state = tree_flatten(TS.train_shardings(cfg, TO.OptConfig(**opt_kw),
+                                                tm))[0]
+        jo = JO.OptConfig(**opt_kw)
+        with JSH.sharding_ctx(jm):
+            axes = jax.tree.leaves(JS.train_state_axes(jcfg, jo),
+                                   is_leaf=lambda x: isinstance(x, tuple))
+            want = [JSH.spec_for(x.shape, a) for x, a in zip(
+                jax.tree.leaves(JS.train_state_shapes(jcfg, jo)), axes)]
+        assert [g.spec for g in state] == [tuple(w) for w in want]
+        assert any(g.spec and g.spec[0] == "model" for g in state)
         for g in state:
             for d, name in enumerate(("data", "model")):
                 dims = [i for i, a in enumerate(g.spec)
@@ -399,6 +431,38 @@ np.savez(OUT + f"/moe_{{RANK}}.npz", y=y.detach().numpy(),
          aux=aux.detach().numpy(), gx=gx.numpy(),
          **{{"g_" + k: v for k, v in gp.items()}})
 
+# (3b) moe_ffn_ep on the production layout's DTensors over the (2, 2)
+# mesh: the leaves placed as train_shardings places them, x's rows over
+# "data"; the gradients of sum(y * c) come back on the leaves, whole
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.models.sharding import live_placements, placements
+placed = {{}}
+for k in ("router", "w_gate", "w_up", "w_down"):
+    logical = ("embed", "experts") if k == "router" else \
+        ("experts", "embed", "ffn") if k != "w_down" else \
+        ("experts", "ffn", "embed")
+    full = torch.from_numpy(m["p_" + k])
+    with sharding_ctx(mesh):
+        pl = live_placements(placements(spec_for(full.shape, logical),
+                                        mesh), mesh)
+    placed[k] = distribute_tensor(full, mesh, pl,
+                                  src_data_rank=None).requires_grad_()
+rows_pl = (Shard(0), Replicate())
+xd = DTensor.from_local(torch.from_numpy(m["x"][rows]), mesh, rows_pl,
+                        run_check=False).requires_grad_()
+cd = DTensor.from_local(torch.from_numpy(m["c"][rows]), mesh, rows_pl,
+                        run_check=False)
+with sharding_ctx(mesh):
+    yd, auxd = MEP.moe_ffn_ep(cfg, placed, xd)
+(yd * cd).sum().backward()
+np.savez(OUT + f"/moe_dt_{{RANK}}.npz", y=yd.full_tensor().detach().numpy(),
+         aux=auxd.full_tensor().detach().numpy(),
+         gx=xd.grad.full_tensor().numpy(),
+         placements=np.array([str(tuple(yd.placements)),
+                              str(tuple(placed["w_gate"].grad.placements))]),
+         **{{"g_" + k: v.grad.full_tensor().numpy()
+            for k, v in placed.items()}})
+
 # (4) the production-layout Trainer: one step on (2, 2) with a
 # checkpoint, restored onto (4, 1), (1, 4) and no mesh, one more step
 # on each
@@ -547,6 +611,36 @@ def test_moe_ffn_ep_gradient_is_the_single_device_gradient(dist_runs):
                                        err_msg=name)
 
 
+def test_moe_ffn_ep_on_dtensors_matches_repro_and_one_device(dist_runs):
+    """moe_ffn_ep on the production layout's DTensors over 2 x 2 ranks
+    (the router ("embed", "experts") and the experts ("experts", "embed",
+    "ffn") placed as the trainer places them, x's rows over "data"): y
+    on x's placements equals repro's moe_ffn_ep over 2 x 2 devices
+    (rtol 2e-4, atol 2e-5); aux, the mean of the two data ranks'
+    estimates, lies between them; and the gradients of sum(y * c) with
+    respect to x, the router and every expert, whole, equal jax.grad of
+    repro's single-device moe_ffn within 1e-5 of each gradient's largest
+    |value| (capacity 8.0 drops nothing): each data rank's part of a
+    weight's gradient is summed over "data" and counted once over
+    "model"."""
+    d, _ = dist_runs
+    m = np.load(d / "moe.npz")
+    aux_by_data = [float(np.load(d / f"moe_{r}.npz")["aux"]) for r in (0, 2)]
+    for r in range(4):
+        got = np.load(d / f"moe_dt_{r}.npz")
+        assert str(got["placements"][0]) == "(Shard(dim=0), Replicate())"
+        np.testing.assert_allclose(got["y"], m["y"], rtol=2e-4, atol=2e-5)
+        assert min(aux_by_data) <= float(got["aux"]) <= max(aux_by_data)
+        np.testing.assert_allclose(float(got["aux"]), np.mean(aux_by_data),
+                                   rtol=1e-6)
+        for k in ("gx", "g_router", "g_w_gate", "g_w_up", "g_w_down"):
+            b = m[k]
+            assert np.abs(b).max() > 0, k
+            np.testing.assert_allclose(got[k], b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max(),
+                                       err_msg=k)
+
+
 # the production-layout Trainer's checkpoint onto other meshes.  float32
 # at smoke widths; the meshes split the sums differently.  The state is
 # compared leaf by leaf, absolute: the second step's update m / sqrt(v)
@@ -627,8 +721,7 @@ from repro_torch.ckpt import restore, save
 from repro_torch.configs import smoke_config
 from repro_torch.runtime.elastic import build_mesh
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.steps import (global_state, local_state,
-                                     make_train_step, train_state_shapes)
+from repro_torch.train.steps import make_train_step, train_state_shapes
 opt = OptConfig(**{opt!r})
 for name, arch, mp, micro, kw in {cases!r}:
     d = OUT + "/" + name
@@ -636,17 +729,11 @@ for name, arch, mp, micro, kw in {cases!r}:
     mesh = build_mesh(model_parallel=mp, device="cpu")
     step = make_train_step(cfg, opt, micro, mesh=mesh)
     shapes = train_state_shapes(cfg, opt)
-    # the production layout's state is DTensors; moe_ep's, local slices
-    if step.production:
-        state = restore(d + "/in", shapes, shardings=step.shardings)
-    else:
-        state = local_state(restore(d + "/in", shapes, device="cpu"),
-                            step.shardings)
+    state = restore(d + "/in", shapes, shardings=step.shardings)
     z = np.load(d + "/batch.npz")
     new, metrics = step(state, {{k: z[k] for k in z.files}})
     print(name, step.layout, flush=True)
-    save(d + "/out", 4, new if step.production
-         else global_state(new, step.shardings))
+    save(d + "/out", 4, new)
     if RANK == 0:
         np.savez(d + "/metrics.npz",
                  **{{k: v.numpy() for k, v in metrics.items()}})
@@ -690,12 +777,11 @@ def test_two_rank_step_matches_one_device_repro(step_runs, name):
     and 5 (a mean of per-rank means would be far off), also over 2
     microbatches, on the production layout (deepseek's state FSDP over
     the 2 data ranks); (1, 2) with olmoe's 4 experts split 2 and 2
-    (moe_ep at capacity 8.0, where no pair drops), also with every layer
-    checkpointed.  loss, grad_norm, tokens, aux,
+    (moe_ep at capacity 8.0, where no pair drops, on the same layout),
+    also with every layer checkpointed.  loss, grad_norm, tokens, aux,
     lr and every new leaf within 2e-5 (float32, summation order)."""
     d, want, layouts = step_runs
-    assert layouts[name] == ("moe_ep" if name.startswith("expert")
-                             else "production")
+    assert layouts[name] == "production"
     jnew, jm = want[name]
     got = np.load(d / name / "metrics.npz")
     for key in ("loss", "grad_norm", "tokens", "aux", "lr"):

@@ -216,6 +216,40 @@ def test_all_reduce_over_16_counts_its_ring_wire_bytes():
     assert got["flops"] == 0
 
 
+def test_a_permute_counts_its_bytes_once_and_tops_the_wire_list():
+    """An all_to_all_single that takes its whole output from one rank and
+    sends its whole input to one (``models/sharding.py``'s permute of a
+    weight's shard) is a collective-permute: n bytes on the wire for n
+    bytes moved, where an all-to-all of the same output reads (N-1)/N of
+    them; ``top_wire`` lists each by kind, group size, output shape and
+    dtype, the largest first, with its count and the group's mesh axis
+    ("world" for the default group)."""
+    got = _run("""
+        import json, torch
+        import torch.distributed as dist
+        import torch.distributed._functional_collectives as fc
+        from repro_torch.launch.mesh import fake_process_group
+        from repro_torch.launch.opcost import OpCounter
+        with fake_process_group(16):
+            t = torch.empty(256, 4, device="meta", dtype=torch.bfloat16)
+            splits = [0] * 16
+            splits[5] = 1024
+            with OpCounter("meta") as oc:
+                fc.all_to_all_single(t.reshape(-1), splits, splits,
+                                     dist.group.WORLD) + 0
+                fc.all_to_all_single(t, None, None, dist.group.WORLD) + 0
+                fc.all_to_all_single(t, None, None, dist.group.WORLD) + 0
+            print(json.dumps({"cost": oc.cost.to_dict(),
+                              "top": oc.cost.top_wire()}))
+    """)
+    cost = got["cost"]
+    assert cost["coll_counts"] == {"collective-permute": 1, "all-to-all": 2}
+    assert cost["wire_bytes"] == pytest.approx(2048 + 2 * 15 / 16 * 2048)
+    assert got["top"] == [
+        ["all-to-all world n=16 (256, 4) bfloat16", 2 * 15 / 16 * 2048, 2],
+        ["collective-permute world n=16 (1024,) bfloat16", 2048.0, 1]]
+
+
 # ---------------------------------------------------------------------------
 # unsharded FLOPs against repro's hlocost, one smoke config per family
 # ---------------------------------------------------------------------------

@@ -2,10 +2,10 @@
 it (``models/sharding.py``: ``use_weight``, ``product_operands``,
 ``on_own_rows``), held to ``repro`` and to one process on the CPU.
 
-  * Four decode cells of the dry run side by side with ``repro``'s
+  * Five decode cells of the dry run side by side with ``repro``'s
     (``scripts/dryrun_side_by_side.py``, each side in its own
-    interpreter): per-device FLOPs within the bounds below, argument
-    bytes and fallbacks equal to ``repro``'s.
+    interpreter): per-device FLOPs and collective wire bytes within the
+    bounds below, argument bytes and fallbacks equal to ``repro``'s.
   * The helpers are the identity (the cast alone) on plain tensors and on
     a (1, 1) mesh, and dispatch no DTensor op there.
   * On a 2 x 2 gloo mesh, products placed by each rule (the FSDP gather
@@ -52,8 +52,19 @@ PL = _script("production_layout_2x2")
 # (the port at torch 2.13.0+cpu; repro's are XLA's, read beside them)
 BEFORE = {"whisper-medium": 7.025e9, "internvl2-2b": 1.072e10,
           "qwen1.5-32b": 1.314e11}
-DECODE_CELLS = ["mamba2-130m", "whisper-medium", "internvl2-2b",
-                "qwen1.5-32b"]
+# per-device collective wire bytes of each cell before the decode moves
+# kept the rows on their ranks and moved a weight's FSDP shard onto
+# "model" by a permute (torch 2.13.0+cpu): none may rise
+WIRE_BEFORE = {("mamba2-130m", "single"): 237_584_640,
+               ("mamba2-130m", "multi"): 164_919_376,
+               ("whisper-medium", "single"): 614_797_500,
+               ("internvl2-2b", "single"): 1_098_916_860,
+               ("qwen1.5-32b", "single"): 15_549_936_480}
+# the cells whose wire bytes are held at or below repro's
+WIRE_AT_MOST_REPRO = {"mamba2-130m", "qwen1.5-32b"}
+DECODE_CELLS = [("mamba2-130m", "single"), ("whisper-medium", "single"),
+                ("internvl2-2b", "single"), ("qwen1.5-32b", "single"),
+                ("mamba2-130m", "multi")]
 # XLA's memory analysis of repro's whisper cell reads 29,540,608 argument
 # bytes a device fewer than the operands' shards (tests/test_torch_launch.py
 # holds both packages' per-operand counts equal); the port's are held to
@@ -61,30 +72,51 @@ DECODE_CELLS = ["mamba2-130m", "whisper-medium", "internvl2-2b",
 ARG_BYTES = {"whisper-medium": 2_878_950_208}
 
 
-def _side_by_side(tmp, arch):
-    kw = dict(arch=arch, shape="decode_32k", multi=False, tmp=tmp)
+def _side_by_side(tmp, cell):
+    arch, mesh = cell
+    kw = dict(arch=arch, shape="decode_32k", multi=mesh == "multi", tmp=tmp,
+              cfg=None)
     return (SBS.counts(SBS._run(SBS._REPRO.format(**kw))),
             SBS.counts(SBS._run(SBS._PORT.format(**kw))))
 
 
 @pytest.fixture(scope="module")
 def decode_cells(tmp_path_factory):
-    """The four decode_32k x single cells in both packages, two cells at a
-    time, each side in its own interpreter."""
+    """The decode_32k cells in both packages, two cells at a time, each
+    side in its own interpreter."""
     run = functools.partial(_side_by_side,
                             str(tmp_path_factory.mktemp("repro_art")))
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         return dict(zip(DECODE_CELLS, pool.map(run, DECODE_CELLS)))
 
 
-@pytest.mark.parametrize("arch", DECODE_CELLS)
-def test_decode_cell_partitions_as_repro(decode_cells, arch):
+@pytest.mark.parametrize("cell", DECODE_CELLS, ids="-".join)
+def test_decode_cell_partitions_as_repro(decode_cells, cell):
     """mamba2's useful ratio at least 0.80 (every product on the rank's
     own 8 rows, the head's contraction split over "model"); the others
     below their per-device FLOPs before and within 1.5x of repro's; the
-    argument bytes and the fallbacks are repro's."""
-    repro, port = decode_cells[arch]
+    argument bytes and the fallbacks are repro's.  The collective wire
+    bytes a device at most the cell's before the decode moves
+    (WIRE_BEFORE), mamba2's (single and multi) and qwen's at most
+    repro's; and no all-gather in ``top_wire`` moves a float32 state or
+    score tensor (three or more dimensions) of the step's rows (its
+    output stacks 16 shards of 8 rows, 4 multi, along dimension 0: 128,
+    64): the SSM state and the attention scores stay where they lie, the
+    state's inner dimension and the scores' sequence on their "model"
+    shards, their rows on their "data" rank."""
+    arch, mesh = cell
+    repro, port = decode_cells[cell]
     assert repro["status"] == port["status"] == "ok"
+    assert port["wire_bytes_per_dev"] <= WIRE_BEFORE[cell], port
+    if arch in WIRE_AT_MOST_REPRO:
+        assert port["wire_bytes_per_dev"] <= repro["wire_bytes_per_dev"], (
+            port["wire_bytes_per_dev"], repro["wire_bytes_per_dev"])
+    rows = 128 if mesh == "single" else 64
+    for key, _, _ in port["top_wire"]:
+        kind, _, _, shape = key.split(" ", 3)
+        dims = [int(v) for v in shape[1:shape.index(")")].split(",") if v]
+        assert not (kind == "all-gather" and shape.endswith("float32")
+                    and len(dims) >= 3 and dims[0] == rows), port["top_wire"]
     assert port["arg_bytes_per_dev"] == ARG_BYTES.get(
         arch, repro["arg_bytes_per_dev"])
     assert port["fallbacks"] == repro["fallbacks"]
@@ -197,7 +229,9 @@ dist.init_process_group("gloo", init_method="file://" + STORE, rank=RANK,
                         world_size=4)
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import init_tree
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import sharding as SH
@@ -243,6 +277,27 @@ def forward_case(fn, inputs, logical):
                          / y.abs().max())}}
 
 
+class Collectives(TorchDispatchMode):
+    # the collectives DTensor and the helpers issue, below DTensor
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if func.namespace.startswith("_c10d_functional"):
+            self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {{}}))
+
+
+def moved(fn, *args):
+    # the collectives of one call
+    with Collectives() as seen:
+        out = fn(*args)
+    return out, seen.names
+
+
 g = torch.Generator().manual_seed(0)
 rows4 = torch.randn(4, 3, 8, generator=g)
 rows2 = torch.randn(2, 3, 8, generator=g)
@@ -284,6 +339,26 @@ res["split_contraction_no_grad"] = forward_case(
     lambda x, w: L.proj_heads(x, w, "kv_heads"),
     [rows2, torch.randn(8, 2, 4, generator=g)],
     [("batch",), ("embed", "kv_heads", "head_dim")])
+# the head's FSDP shard over "data" moved onto "model" for its split
+# contraction (a vocabulary of 7 is whole over "model") by a permute, not
+# a gather of the whole head, with autograd and without
+seen = {{}}
+
+
+def head(x, w):
+    out, names = moved(lambda: L.unembed(CFG, {{"tok": w}}, x))
+    if hasattr(w, "placements"):
+        seen[torch.is_grad_enabled()] = names
+    return out
+
+
+res["permute"] = case(head, [rows2, torch.randn(7, 8, generator=g)],
+                      [("batch",), ("vocab", "embed")])
+res["permute_no_grad"] = forward_case(
+    head, [rows2, torch.randn(7, 8, generator=g)],
+    [("batch",), ("vocab", "embed")])
+res["permute"]["collectives"] = seen[True]
+res["permute_no_grad"]["collectives"] = seen[False]
 # an MLP: gathered up-projection, Partial down-projection, biases
 res["mlp"] = case(mlp, [rows4, torch.randn(8, 6, generator=g),
                         torch.randn(6, generator=g),
@@ -320,6 +395,41 @@ SSD_AXES = [("batch", None, "ssm_heads"), ("batch", None, "ssm_heads"),
 res["ssd_rows"] = case(ssd, ssd_inputs(4), SSD_AXES)
 # ... or, 2 rows, on its heads: B and C used whole, Partial gradients
 res["ssd_heads"] = case(ssd, ssd_inputs(2), SSD_AXES)
+# a decode step of an SSM whose 3 heads do not divide over "model" (as
+# mamba2-130m's 24 over 16): the state's rows stay on their data rank,
+# and it leaves on the cache's placements; and the decode softmax over a
+# sequence sharded over "model"
+SCFG = ModelConfig(name="s", family="ssm", num_layers=1, d_model=6,
+                   num_heads=1, num_kv_heads=1, head_dim=4, d_ff=4,
+                   vocab_size=7, dtype="float32", ssm_state=4,
+                   ssm_headdim=4, ssm_chunk=2)
+SP = S.ssm_specs(SCFG)
+sp = init_tree(SP, g, "float32")
+CACHE_SHAPES, CACHE_AXES = S.ssm_cache_specs(SCFG, 2, torch.float32)
+cache0 = {{k: torch.randn(v.shape, generator=g) for k, v in
+          CACHE_SHAPES.items()}}
+xdec = torch.randn(2, 1, 6, generator=g)
+
+
+def ssm_decode(x, *leaves):
+    n = len(SP)
+    p = dict(zip(SP, leaves[:n]))
+    cache = dict(zip(CACHE_SHAPES, leaves[n:]))
+    out, new = S.ssm_decode_step(SCFG, p, x, cache)
+    seen["state_placements"] = [str(tuple(new["state"].placements)),
+                                str(tuple(cache["state"].placements))] \
+        if hasattr(new["state"], "placements") else None
+    return torch.cat([out.reshape(-1), new["state"].reshape(-1)])
+
+
+res["ssm_decode_no_grad"] = forward_case(
+    ssm_decode, [xdec] + list(sp.values()) + list(cache0.values()),
+    [("batch",)] + [v.axes for v in SP.values()]
+    + [CACHE_AXES[k] for k in CACHE_SHAPES])
+res["ssm_decode_no_grad"]["state_placements"] = seen["state_placements"]
+res["softmax_sharded_no_grad"] = forward_case(
+    SH.softmax_last, [torch.randn(2, 3, 1, 1, 8, generator=g) * 4],
+    [("batch", None, None, None, "heads")])
 if RANK == 0:
     with open(os.path.join(OUT, "placement.json"), "w") as fh:
         json.dump(res, fh)
@@ -347,7 +457,15 @@ def test_placed_products_match_one_process_on_a_2x2_mesh(tmp_path):
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]
     res = json.loads((tmp_path / "placement.json").read_text())
-    assert len(res) == 9
+    assert len(res) == 13
+    for name in ("permute", "permute_no_grad"):
+        # the head moved by one all-to-all (a permute), none gathered it
+        seen = res[name].pop("collectives")
+        assert seen.count("all_to_all_single") == 1, (name, seen)
+        assert "all_gather_into_tensor" not in seen, (name, seen)
+    # the SSM decode state leaves on the cache's placements
+    state, cache = res["ssm_decode_no_grad"].pop("state_placements")
+    assert state == cache == "(Shard(dim=0), Replicate())", (state, cache)
     for name, err in res.items():
         assert err["out"] <= PL.TOL["loss"], (name, err)
         grads = {k: v for k, v in err.items() if k != "out"}
