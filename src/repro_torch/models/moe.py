@@ -36,6 +36,14 @@ experts, and the expert weights are gathered over "data" for them
 divide over "data", the weights keep their shard there and the
 contraction is split instead).  Explicit expert parallelism (``cfg.moe_ep``) is
 ``moe_ep.moe_ffn_ep``, which falls back to ``moe_ffn`` without a mesh.
+
+``moe_ffn`` records the program spans (``core/obs/trace.py``)
+``moe.route`` (router product, top-k sort, balance loss),
+``moe.dispatch`` (``expert_slots`` and the buffer's gather),
+``moe.experts`` (the three products) and ``moe.combine``, and counts the
+routed (token, expert) pairs and those kept within capacity
+(``moe.pairs_routed``, ``moe.pairs_kept``; on a mesh, each rank's own),
+tallied on the device.  Padding tokens count like any other.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.obs.trace import count, span
 from repro_torch.models.params import PSpec
 from repro_torch.models.sharding import (constrain, matmul_rows,
                                          product_operands, shard)
@@ -140,59 +149,73 @@ def _dispatch_combine(cfg: ModelConfig, p: Dict, x: Array, weights: Array,
     g, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     tk = t * k
-    order, keep, slot = expert_slots(idx, e, capacity)
+    with span("moe.dispatch"):
+        order, keep, slot = expert_slots(idx, e, capacity)
+        mine = keep.to_local() if hasattr(keep, "to_local") else keep
+        count("moe.pairs_routed", mine.numel())
+        count("moe.pairs_kept", mine)
 
-    pairs = x[:, :, None, :].expand(g, t, k, d).reshape(g, tk, d)
-    pairs = torch.cat([pairs, pairs.new_zeros((g, 1, d))], dim=1)
-    rows = _buffer_pairs(idx, order, e, capacity)
-    buf = torch.gather(pairs, 1, rows[..., None].expand(g, e * capacity, d))
-    # (G, E, C, D) -> (E, G·C, D): one batched matmul per weight, on this
-    # rank's experts
-    xe = buf.reshape(g, e, capacity, d).transpose(0, 1).reshape(
-        e, g * capacity, d)
-    xe = shard(xe, "experts", "batch", None)
+        pairs = x[:, :, None, :].expand(g, t, k, d).reshape(g, tk, d)
+        pairs = torch.cat([pairs, pairs.new_zeros((g, 1, d))], dim=1)
+        rows = _buffer_pairs(idx, order, e, capacity)
+        buf = torch.gather(pairs, 1,
+                           rows[..., None].expand(g, e * capacity, d))
+        # (G, E, C, D) -> (E, G·C, D): one batched matmul per weight, on
+        # this rank's experts
+        xe = buf.reshape(g, e, capacity, d).transpose(0, 1).reshape(
+            e, g * capacity, d)
+        xe = shard(xe, "experts", "batch", None)
+
     def product(a, name, *out):
         a, w = product_operands(a, p[name], x.dtype, ((1, -1),), rows=1)
         return constrain(torch.bmm(a, w), "experts", "batch", *out)
 
-    h = F.silu(product(xe, "w_gate", "ffn")) * product(xe, "w_up", "ffn")
-    out = product(h, "w_down", None)
-    out = out.reshape(e, g, capacity, d).transpose(0, 1).reshape(
-        g, e * capacity, d)
-    out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
+    with span("moe.experts"):
+        h = F.silu(product(xe, "w_gate", "ffn")) * product(xe, "w_up",
+                                                           "ffn")
+        out = product(h, "w_down", None)
+    with span("moe.combine"):
+        out = out.reshape(e, g, capacity, d).transpose(0, 1).reshape(
+            g, e * capacity, d)
+        out = torch.cat([out, out.new_zeros((g, 1, d))], dim=1)
 
-    # back to token-major pairs, each token's in ascending expert order
-    # (repro's scatter-add order; a token's k experts are distinct); the
-    # inverse of the permutation ``order`` is its argsort
-    inv = torch.argsort(order, dim=-1, stable=True)
-    by_e = torch.argsort(idx, dim=-1, stable=True)
-    slot_t, keep_t = (torch.gather(torch.gather(a, 1, inv).reshape(g, t, k),
-                                   2, by_e) for a in (slot, keep))
-    coef = (torch.gather(weights, 2, by_e) * keep_t).to(out.dtype)
-    gathered = torch.gather(
-        out, 1, slot_t.reshape(g, tk, 1).expand(g, tk, d)).reshape(
-            g, t, k, d) * coef[..., None]
-    y = torch.zeros_like(gathered[:, :, 0])
-    for j in range(k):
-        y = y + gathered[:, :, j]
+        # back to token-major pairs, each token's in ascending expert
+        # order (repro's scatter-add order; a token's k experts are
+        # distinct); the inverse of the permutation ``order`` is its
+        # argsort
+        inv = torch.argsort(order, dim=-1, stable=True)
+        by_e = torch.argsort(idx, dim=-1, stable=True)
+        slot_t, keep_t = (torch.gather(torch.gather(a, 1, inv).reshape(
+            g, t, k), 2, by_e) for a in (slot, keep))
+        coef = (torch.gather(weights, 2, by_e) * keep_t).to(out.dtype)
+        gathered = torch.gather(
+            out, 1, slot_t.reshape(g, tk, 1).expand(g, tk, d)).reshape(
+                g, t, k, d) * coef[..., None]
+        y = torch.zeros_like(gathered[:, :, 0])
+        for j in range(k):
+            y = y + gathered[:, :, j]
     return y
 
 
 def moe_ffn(cfg: ModelConfig, p: Dict, x: Array) -> Tuple[Array, Array]:
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar)."""
     b, s, d = x.shape
-    xf, router = product_operands(x.float(), p["router"], torch.float32,
-                                  ((0, -1),))
-    logits = constrain(matmul_rows(xf, router), "batch", "seq", "experts")
-    weights, idx = _route(logits, cfg.experts_per_token)
+    with span("moe.route"):
+        xf, router = product_operands(x.float(), p["router"],
+                                      torch.float32, ((0, -1),))
+        logits = constrain(matmul_rows(xf, router), "batch", "seq",
+                           "experts")
+        weights, idx = _route(logits, cfg.experts_per_token)
 
-    # load-balancing auxiliary loss (Switch-style), in float32; the one-hot
-    # by comparison (F.one_hot checks its input's range on the host)
-    probs = torch.softmax(logits, dim=-1)                   # (B,S,E)
-    experts = torch.arange(cfg.num_experts, device=x.device)
-    frac_tokens = torch.mean((idx[..., :1] == experts).float(), dim=(0, 1))
-    frac_probs = torch.mean(probs, dim=(0, 1))
-    aux = cfg.num_experts * torch.sum(frac_tokens * frac_probs)
+        # load-balancing auxiliary loss (Switch-style), in float32; the
+        # one-hot by comparison (F.one_hot checks its input's range on
+        # the host)
+        probs = torch.softmax(logits, dim=-1)                   # (B,S,E)
+        experts = torch.arange(cfg.num_experts, device=x.device)
+        frac_tokens = torch.mean((idx[..., :1] == experts).float(),
+                                 dim=(0, 1))
+        frac_probs = torch.mean(probs, dim=(0, 1))
+        aux = cfg.num_experts * torch.sum(frac_tokens * frac_probs)
 
     if b * s <= _GLOBAL_ROUTE_MAX_TOKENS:
         cap = _capacity(cfg, b * s)

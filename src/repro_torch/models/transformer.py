@@ -16,6 +16,10 @@ The moe family puts ``moe.moe_ffn`` in place of the MLP when
 precomputed patch embeddings (zeros when none are given, as in
 ``repro``): they take the first positions, and their rows are trimmed
 after the final norm.
+
+A training layer's attention runs in a ``model.attention`` program span
+(``core/obs/trace.py``), recorded in the forward only: a checkpoint's
+recompute records nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.obs.trace import span
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import moe_ep as MEP
@@ -130,8 +135,9 @@ def _block_train(cfg: ModelConfig, p: Dict, x: Array,
                  positions: Optional[Array],
                  segment_ids: Optional[Array]) -> Tuple[Array, Array]:
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + L.attention(cfg, p["attn"], h, positions, segment_ids)
-    x = shard(x, "batch", "seq", None)
+    with span("model.attention"):
+        a = L.attention(cfg, p["attn"], h, positions, segment_ids)
+    x = shard(x + a, "batch", "seq", None)
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     f, aux = _ffn(cfg, p, h)
     x = x + f

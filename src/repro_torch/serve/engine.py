@@ -25,9 +25,21 @@ attention layer: in ``prefill`` and in the first-token ``apply`` (for
 encdec, in each encoder layer and in each decoder layer's self- and
 cross-attention); an encdec decode step runs it once in each decoder
 layer, for the cross-attention.  The
-engine keeps the host-clock seconds of its admissions (``prefill_s``) and
-decode steps (``decode_s``); both end in a device-to-host read of the
-chosen tokens, so they include the device's work.
+engine keeps the host-clock seconds of its admissions (``prefill_s``: the
+prefill, the first-token ``apply`` and the splice together) and decode
+steps (``decode_s``); both end in a device-to-host read of the chosen
+tokens, so they include the device's work.
+
+Given a ``core.obs`` ``Tracer`` (``tracer=``), each ``step`` records
+program spans on it (``core/obs/trace.py``): ``serve.queue`` (a request's
+wait from ``submit`` to the start of its admission), ``serve.admit``
+with its children ``serve.prefill`` (``api.prefill`` and ``pad_cache``),
+``serve.first_token`` (the ``apply`` and the argmax read; ``positions``
+is the logit rows it computes for the one it keeps; its forward's
+``model.attention`` spans lie below it) and
+``serve.splice``, all under the request's ``rid``, and ``serve.decode``
+(``live``: the slots in use).  The spans' device seconds are resolved
+at the end of each step, after the step's last device-to-host read.
 """
 
 from __future__ import annotations
@@ -35,13 +47,14 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.obs.trace import Tracer, now_ns, span
 from repro_torch.data.tokenizer import EOS
 from repro_torch.models import api
 from repro_torch.models.params import torch_dtype, tree_map
@@ -75,7 +88,7 @@ def _splice(full, one, slot: int) -> None:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_len: int = 256, prompt_bucket: int = 16,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, tracer: Optional[Tracer] = None):
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -93,13 +106,25 @@ class ServingEngine:
         self.prefills = 0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        self.tracer = tracer
+        self._submitted: Dict[int, int] = {}   # rid -> now_ns(), traced
 
     # ----------------------------------------------------------------- admin
     def submit(self, req: Request) -> Request:
+        if self.tracer is not None:
+            self._submitted[req.rid] = now_ns()
         self.queue.append(req)
         return req
 
     def _insert(self, slot: int, req: Request) -> None:
+        with span("serve.admit", rid=req.rid) as admit:
+            if self.tracer is not None:
+                q0 = self._submitted.pop(req.rid)
+                self.tracer.record_span("serve.queue", q0, admit.t0 - q0,
+                                        rid=req.rid)
+            self._admit(slot, req)
+
+    def _admit(self, slot: int, req: Request) -> None:
         t0 = time.perf_counter()
         true_len = len(req.prompt)
         blen = _round_up(true_len, self.bucket)
@@ -111,23 +136,26 @@ class ServingEngine:
             frontend = torch.zeros(
                 (1, self.cfg.num_frontend_tokens, self.cfg.d_model),
                 dtype=torch_dtype(self.cfg.dtype), device=self.device)
-        cache1, _ = api.prefill(self.cfg, self.params, tokens, frontend)
-        cache1 = api.pad_cache(self.cfg, cache1, self.max_len)
+        with span("serve.prefill"):
+            cache1, _ = api.prefill(self.cfg, self.params, tokens, frontend)
+            cache1 = api.pad_cache(self.cfg, cache1, self.max_len)
         self.prefills += 1
         # first-token logits at the true last prompt position
         batch = {"tokens": tokens}
         if frontend is not None:
             batch["frontend"] = frontend
-        logits, _ = api.apply(self.cfg, self.params, batch)
+        with span("serve.first_token", positions=blen):
+            logits, _ = api.apply(self.cfg, self.params, batch)
+            first = int(torch.argmax(logits[0, true_len - 1]))
         nf = (self.cfg.num_frontend_tokens
               if self.cfg.family == "vlm" else 0)
-        first = int(torch.argmax(logits[0, true_len - 1]))
 
-        for key, full in self.cache.items():
-            if key == "len":
-                full[slot] = true_len + nf
-            else:   # splice the single-request cache into batch slot
-                _splice(full, cache1[key], slot)
+        with span("serve.splice"):
+            for key, full in self.cache.items():
+                if key == "len":
+                    full[slot] = true_len + nf
+                else:   # splice the single-request cache into batch slot
+                    _splice(full, cache1[key], slot)
         req.tokens.append(first)
         self.active[slot] = req
         self.prefill_s += time.perf_counter() - t0
@@ -143,6 +171,15 @@ class ServingEngine:
     # ------------------------------------------------------------------ run
     def step(self) -> bool:
         """Admit + one decode step.  Returns False when fully idle."""
+        if self.tracer is None:
+            return self._step()
+        with self.tracer.active(self.device):
+            try:
+                return self._step()
+            finally:    # after the step's last device-to-host read
+                self.tracer.settle()
+
+    def _step(self) -> bool:
         for slot in range(self.slots):
             if self.active[slot] is None and self.queue:
                 self._insert(slot, self.queue.pop(0))
@@ -153,11 +190,12 @@ class ServingEngine:
         tok = np.zeros((self.slots, 1), np.int32)
         for s in live:
             tok[s, 0] = self.active[s].tokens[-1]
-        logits, self.cache = api.decode_step(
-            self.cfg, self.params, self.cache,
-            torch.from_numpy(tok).to(self.device))
+        with span("serve.decode", live=len(live)):
+            logits, self.cache = api.decode_step(
+                self.cfg, self.params, self.cache,
+                torch.from_numpy(tok).to(self.device))
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.decode_steps += 1
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         for s in live:
             req = self.active[s]

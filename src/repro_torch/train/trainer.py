@@ -6,8 +6,20 @@
   * on a step failure: rebuild the state from init and restore the latest
     checkpoint — bounded restarts, so optimizer steps happen exactly once,
   * loss and throughput metrics; per step, the seconds spent waiting for
-    the batch, in forward + backward and in the optimizer
-    (``step_times``; CUDA events on the card).
+    the batch (host clock), in forward + backward and in the optimizer
+    (``step_times``: ``data_wait_s``, ``grad_s``, ``update_s``; the two
+    latter are timed ``core.obs`` spans, CUDA event pairs on the card).
+
+Given a ``core.obs`` ``Tracer`` (``tracer=``), each step records the
+program spans ``train.step`` with its children ``train.data_wait``,
+``train.fwd_bwd`` and ``train.optimizer``, and below them the model's
+(``model.attention``; ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+``moe.combine`` and the counters ``moe.pairs_routed``,
+``moe.pairs_kept``), resolved at the step's end, where the trainer waits
+for the optimizer anyway.  Each ``step_times`` entry then also holds the
+step's forward attention seconds (``attn_fwd_s``), its MoE routing,
+dispatch and combine seconds (``moe_route_fwd_s``) and its routed and
+kept (token, expert) pairs (``moe_pairs``, ``moe_pairs_kept``).
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``.
 With ``mesh`` (one process a rank; ``runtime.elastic.build_mesh``) every
@@ -25,6 +37,7 @@ collectives.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -36,6 +49,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.obs.trace import Tracer, span
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.steps import (init_train_state, make_train_step,
                                      train_state_shapes)
@@ -55,34 +69,27 @@ class TrainerConfig:
     seed: int = 0
 
 
-class _Clock:
-    """Marks on the device's timeline (CUDA events) or the host's."""
+# the forward's MoE spans outside the expert products
+_ROUTE_SPANS = ("moe.route", "moe.dispatch", "moe.combine")
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
 
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans_s(self) -> List[float]:
-        """Seconds between consecutive marks (waits for the last)."""
-        m = self.marks
-        if self.cuda:
-            m[-1].synchronize()
-            return [a.elapsed_time(b) / 1e3 for a, b in zip(m, m[1:])]
-        return [b - a for a, b in zip(m, m[1:])]
+def _traced_times(records: List[Dict]) -> Dict[str, float]:
+    """A step's readings from its resolved spans and counts."""
+    counts = {r["name"]: r["count"] for r in records if "count" in r}
+    return {
+        "attn_fwd_s": sum(r["device_s"] for r in records
+                          if r["name"] == "model.attention"),
+        "moe_route_fwd_s": sum(r["device_s"] for r in records
+                               if r["name"] in _ROUTE_SPANS),
+        "moe_pairs": counts.get("moe.pairs_routed", 0),
+        "moe_pairs_kept": counts.get("moe.pairs_kept", 0),
+    }
 
 
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: OptConfig,
                  tcfg: TrainerConfig, device: DeviceLike = None,
-                 mesh=None):
+                 mesh=None, tracer: Optional[Tracer] = None):
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
@@ -95,6 +102,7 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.step_times: List[Dict[str, float]] = []
         self.restarts = 0
+        self.tracer = tracer
         self.state = None
         self.state = self._fresh_state()
 
@@ -133,19 +141,58 @@ class Trainer:
 
     # ------------------------------------------------------------------ run
     def _step(self, batch: Dict, wait_s: float) -> Dict:
-        clock = _Clock(self.device)
-        clock.mark()
-        loss, metrics, grads = self.step_fn.accumulate(
-            self.state["params"], batch)
-        clock.mark()
-        self.state, out = self.step_fn.update(self.state, loss, metrics,
-                                              grads)
-        del grads
-        clock.mark()
-        grad_s, update_s = clock.spans_s()
-        self.step_times.append({"data_wait_s": wait_s, "grad_s": grad_s,
-                                "update_s": update_s})
+        with span("train.fwd_bwd", device=self.device) as fwd_bwd:
+            loss, metrics, grads = self.step_fn.accumulate(
+                self.state["params"], batch)
+        with span("train.optimizer", device=self.device) as update:
+            self.state, out = self.step_fn.update(self.state, loss,
+                                                  metrics, grads)
+            del grads
+        update_s = update.seconds()        # waits for the step's end
+        times = {"data_wait_s": wait_s, "grad_s": fwd_bwd.seconds(),
+                 "update_s": update_s}
+        if self.tracer is not None:
+            times.update(_traced_times(self.tracer.settle()))
+        self.step_times.append(times)
         return out
+
+    def _run_step(self, it: Iterator[Dict], t0: float, fault_hook) -> bool:
+        """One step of ``run``: False when the stream has ended."""
+        with span("train.data_wait"):
+            tw = time.perf_counter()
+            batch = next(it, None)
+            wait_s = time.perf_counter() - tw
+        if batch is None:
+            log.warning("data stream ended at step %s",
+                        int(self.state["step"]))
+            return False
+        try:
+            step_before = int(self.state["step"])
+            if fault_hook is not None:
+                fault_hook(step_before)
+            metrics = self._step(batch, wait_s)
+            step = step_before + 1
+            if step % self.tcfg.log_every == 0 or \
+                    step == self.tcfg.steps:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["wall_s"] = time.perf_counter() - t0
+                self.history.append(m)
+            if self.tcfg.ckpt_dir and step % self.tcfg.ckpt_every == 0:
+                self._save(step)
+        except Exception:
+            self.restarts += 1
+            if self.restarts > self.tcfg.max_restarts or \
+                    self.ckpt is None:
+                raise
+            # the state may be half-updated: rebuild from checkpoint,
+            # the newest one issued (a save may still be writing it)
+            self.ckpt.wait()
+            self.state = None
+            self.state = self._fresh_state()
+            log.warning("restart %d at step %s", self.restarts,
+                        int(self.state["step"]))
+        return True
 
     def run(self, batches: Iterator[Dict[str, np.ndarray]],
             fault_hook=None) -> List[Dict[str, float]]:
@@ -155,41 +202,12 @@ class Trainer:
         to the step counter in the checkpoint)."""
         it = iter(batches)
         t0 = time.perf_counter()
-        while int(self.state["step"]) < self.tcfg.steps:
-            tw = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                log.warning("data stream ended at step %s",
-                            int(self.state["step"]))
-                break
-            wait_s = time.perf_counter() - tw
-            try:
-                step_before = int(self.state["step"])
-                if fault_hook is not None:
-                    fault_hook(step_before)
-                metrics = self._step(batch, wait_s)
-                step = step_before + 1
-                if step % self.tcfg.log_every == 0 or \
-                        step == self.tcfg.steps:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["step"] = step
-                    m["wall_s"] = time.perf_counter() - t0
-                    self.history.append(m)
-                if self.tcfg.ckpt_dir and step % self.tcfg.ckpt_every == 0:
-                    self._save(step)
-            except Exception:
-                self.restarts += 1
-                if self.restarts > self.tcfg.max_restarts or \
-                        self.ckpt is None:
-                    raise
-                # the state may be half-updated: rebuild from checkpoint,
-                # the newest one issued (a save may still be writing it)
-                self.ckpt.wait()
-                self.state = None
-                self.state = self._fresh_state()
-                log.warning("restart %d at step %s", self.restarts,
-                            int(self.state["step"]))
+        with (self.tracer.active(self.device) if self.tracer is not None
+              else contextlib.nullcontext()):
+            while int(self.state["step"]) < self.tcfg.steps:
+                with span("train.step"):
+                    if not self._run_step(it, t0, fault_hook):
+                        break
         if self.ckpt is not None:
             self._save(int(self.state["step"]))
             self.ckpt.wait()
