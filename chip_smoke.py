@@ -47,8 +47,9 @@ Phases, each fatal on failure:
   8. LM serving: deepseek-coder-33b at full width cut to 4 of 62 layers,
      bf16 parameters from a seed, 12 requests of 256-1,536 prompt tokens
      and 32 new tokens each through ServingEngine on 4 slots; every
-     prefill and first-token attention must take the flash kernel (2 x
-     layers launches per admission, no "plain_on_card" attention); one
+     prefill attention must take the flash kernel (layers launches per
+     admission, which takes its first token from prefill's logits; no
+     "plain_on_card" attention); one
      prefill, apply and decode step profiled, whose flash time must all
      be the wgmma body's; each layer's q, k, v of a 1,536-token prefill
      held kernel against plain version; prompts of 32, 40 and 200
@@ -70,8 +71,8 @@ Phases, each fatal on failure:
      12 requests of 256-1,536 tokens, 32 new), mamba2-130m (ssm, 24
      layers; 12 requests of whole 256-token chunks; no kernel may
      launch) and internvl2-2b (vlm, 24 layers after a 256-row zero
-     frontend; 4 requests, 16 new).  Flash launches must be 2 x
-     attention layers x prefills, no attention on the plain version;
+     frontend; 4 requests, 16 new).  Flash launches must be attention
+     layers x prefills, no attention on the plain version;
      each phase prints tokens/s, prefill and decode ms, a profiled
      prefill, apply and decode step, and a teacher-forced CPU cross-check
      (olmoe cut to 2 layers); olmoe the share of routed pairs dropped for
@@ -2084,16 +2085,18 @@ def serve_path(cfg, params, dev, requests=None, tag="serve",
     log(f"{tag}: {len(done)} requests ({prompt} prompt tokens, {new} new) "
         f"in {wall:.3f} s on {SERVE_SLOTS} slots: "
         f"{res['new_tokens_per_s']:.1f} new tokens/s; prefill "
-        f"{res['prefill_ms_per_request']:.2f} ms per request (prefill + "
-        f"first-token apply), decode {res['decode_ms_per_step']:.2f} ms per "
-        f"step over {eng.decode_steps} steps")
+        f"{res['prefill_ms_per_request']:.2f} ms per request (prefill, "
+        f"first-token read, splice), decode "
+        f"{res['decode_ms_per_step']:.2f} ms per step over "
+        f"{eng.decode_steps} steps")
     return res
 
 
 def profile_serving(cfg, params, dev, n=SERVE_PROMPT_LEN[1], flash=True,
                     tag="serve", max_len=SERVE_MAX_LEN):
     """Under torch.profiler: one prefill of the longest prompt and one
-    first-token apply of it (the flash kernel's device time against all
+    apply of it, a forward over every position (the flash kernel's
+    device time against all
     kernels' and the wall; with ``flash``, all of it must be the wgmma
     body's), and one decode step of all slots over n-token caches
     (device busy share)."""
@@ -2915,16 +2918,16 @@ def family_phase(fam, dev):
           else contextlib.nullcontext()) as tally:
         res = serve_path(cfg, params, dev, reqs, tag=tag, max_len=max_len)
     counts, paths = launch_counts(), path_stats()
-    # per admission, prefill and the first-token apply each run every
-    # attention layer once (encdec: its encoder's, and each decoder
-    # layer's self- and cross-attention); an encdec decode step runs each
-    # decoder layer's cross-attention over the cached encoder rows
+    # per admission, prefill runs every attention layer once (encdec:
+    # its encoder's, and each decoder layer's self- and cross-attention)
+    # and gives the first token; an encdec decode step runs each decoder
+    # layer's cross-attention over the cached encoder rows
     attn, per_step = (0 if fam == "ssm" else cfg.num_layers), 0
     if fam == "encdec":
         attn = cfg.encoder_layers + 2 * cfg.num_layers
         per_step = cfg.num_layers
     want = {n: 0 for n in counts}
-    want["flash_attention"] = (2 * attn * res["prefills"]
+    want["flash_attention"] = (attn * res["prefills"]
                                + per_step * res["decode_steps"])
     log(f"{tag}: launches {counts} (expected {want}); attention paths "
         f"{paths}")
@@ -4416,8 +4419,8 @@ def main() -> int:
         raise AssertionError(f"the durable feed's launches {dcounts} or "
                              f"paths {dpaths} are not its path's")
     # phase 8, serving, from counts and path stats of 0: every admission
-    # runs the flash kernel once per layer in prefill and once in the
-    # first-token apply, and no attention takes the plain version
+    # runs the flash kernel once per layer, in the prefill that gives its
+    # first token, and no attention takes the plain version
     from repro_torch.configs import get_config
     from repro_torch.models import api
     cfg = get_config(SERVE_ARCH).replace(num_layers=SERVE_LAYERS)
@@ -4438,7 +4441,7 @@ def main() -> int:
     scounts = launch_counts()
     spaths = path_stats()
     want = {n: 0 for n in scounts}
-    want["flash_attention"] = 2 * cfg.num_layers * serve["prefills"]
+    want["flash_attention"] = cfg.num_layers * serve["prefills"]
     log(f"serve: launches {scounts} (expected {want}); attention paths "
         f"{spaths}")
     if scounts != want or spaths.get(("flash_attention", "plain_on_card")):

@@ -69,8 +69,11 @@ def apply(cfg: ModelConfig, params: Any, batch: Dict):
 
 
 def prefill(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
-            frontend=None):
-    return module(cfg).prefill(cfg, params, tokens, frontend)
+            frontend=None, last=None):
+    """(cache, float32 logits (B,V)) of the prompt ``tokens``: the logits
+    of token position ``last`` (B,), counted over the tokens alone, or of
+    the final row when ``last`` is None."""
+    return module(cfg).prefill(cfg, params, tokens, frontend, last)
 
 
 def decode_step(cfg: ModelConfig, params: Any, cache: Dict,

@@ -148,9 +148,12 @@ def loss(cfg: ModelConfig, params: Dict, batch: Dict,
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
-            frontend: Optional[Array] = None) -> Tuple[Dict, Array]:
-    """Encode frames, prefill the decoder, return (cache, last-token logits).
-    Cache: self k/v (L,B,S,Kv,hd), cross k/v (L,B,F,Kv,hd), len (B,)."""
+            frontend: Optional[Array] = None,
+            last: Optional[Array] = None) -> Tuple[Dict, Array]:
+    """Encode frames, prefill the decoder, return (cache, logits (B,V) of
+    token position ``last`` (B,), or of the final row when ``last`` is
+    None).  Cache: self k/v (L,B,S,Kv,hd), cross k/v (L,B,F,Kv,hd), len
+    (B,)."""
     b, s = tokens.shape
     enc = encode(cfg, params, _frames(cfg, tokens, frontend))
     x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
@@ -170,7 +173,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
         xks.append(xk)
         xvs.append(xv)
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    logits = L.unembed_row(cfg, params["embed"], x, last)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "xk": torch.stack(xks), "xv": torch.stack(xvs),
              "len": torch.full((b,), s, dtype=torch.int32,

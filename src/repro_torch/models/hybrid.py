@@ -142,7 +142,9 @@ def _mamba_subs(cfg: ModelConfig) -> List[int]:
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
-            frontend=None) -> Tuple[Dict, Array]:
+            frontend=None, last=None) -> Tuple[Dict, Array]:
+    """Returns (cache, logits (B,V) of token position ``last`` (B,), or of
+    the final row when ``last`` is None)."""
     del frontend
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
@@ -163,7 +165,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
             h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
             x = x + _ffn(cfg, i, p, h)[0]
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    logits = L.unembed_row(cfg, params["embed"], x, last)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "ssm": {name: {k: torch.stack([c[k] for c in cs])
                             for k in cs[0]} for name, cs in ssm.items()},

@@ -519,3 +519,16 @@ def unembed(cfg: ModelConfig, p: Dict, x: Array) -> Array:
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits
+
+
+def unembed_row(cfg: ModelConfig, p: Dict, x: Array,
+                last: Optional[Array] = None) -> Array:
+    """Float32 logits (B,V) of one row of each sequence of x (B,S,D): row
+    ``last`` (B,) where it is given (one gather), else the final row;
+    ``unembed`` of that row alone."""
+    if last is None:
+        row = x[:, -1:]
+    else:
+        idx = last.to(device=x.device, dtype=torch.long)
+        row = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))
+    return unembed(cfg, p, row)[:, 0]

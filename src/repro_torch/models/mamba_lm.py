@@ -68,7 +68,9 @@ def loss(cfg: ModelConfig, params: Dict, batch: Dict,
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
-            frontend=None) -> Tuple[Dict, Array]:
+            frontend=None, last=None) -> Tuple[Dict, Array]:
+    """Returns (cache, logits (B,V) of token position ``last`` (B,), or of
+    the final row when ``last`` is None)."""
     del frontend
     x = L.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     caches = []
@@ -79,7 +81,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
         x = x + out
         caches.append(cache)
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    logits = L.unembed_row(cfg, params["embed"], x, last)
     cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
     cache["len"] = torch.full((tokens.shape[0],), tokens.shape[1],
                               dtype=torch.int32, device=x.device)

@@ -280,10 +280,15 @@ def _block_prefill(cfg, p, x):
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
-            frontend: Optional[Array] = None) -> Tuple[Dict, Array]:
-    """Returns (cache {k,v:(L,B,S,Kv,hd), len:(B,)}, logits (B,V) at last).
-    S and ``len`` count the frontend stub's rows too."""
+            frontend: Optional[Array] = None,
+            last: Optional[Array] = None) -> Tuple[Dict, Array]:
+    """Returns (cache {k,v:(L,B,S,Kv,hd), len:(B,)}, logits (B,V)).  The
+    logits are those of token position ``last`` (B,), counted over the
+    tokens alone, or of the final row when ``last`` is None.  S and
+    ``len`` count the frontend stub's rows too."""
     frontend = _default_frontend(cfg, tokens, frontend)
+    if last is not None and frontend is not None:
+        last = last + frontend.shape[1]
     x = _inputs_embed(cfg, params, tokens, frontend)
     ks, vs = [], []
     for i in range(cfg.num_layers):
@@ -291,7 +296,7 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: Array,
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(x, params["embed"]["norm_f"], cfg.norm_eps)
-    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    logits = L.unembed_row(cfg, params["embed"], x, last)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "len": torch.full((tokens.shape[0],), x.shape[1],
                                dtype=torch.int32, device=x.device)}

@@ -9,34 +9,36 @@ free slot; the decode step always runs the full batch, and finished
 slots are refilled between steps.
 
 Bucketed prefill correctness: the prompt is right-padded to the bucket, the
-slot's ``len`` is reset to the true prompt length, and the first-token
-logits are taken at the true last position.  Junk cache rows beyond the
-true length are overwritten by the decode writes before the causal mask can
-ever expose them (attention families).  SSM and hybrid caches carry
-recurrent state, so those families prefill the exact prompt (bucket 1).
-The vlm family prefills and applies its prompt after a zero frontend of
-``num_frontend_tokens`` patch embeddings, which count in ``len``.  The
-encdec family gets a zero frontend of ``num_frontend_tokens`` frames too,
-but as a separate encoder sequence: ``len`` counts the prompt only, and
-the first-token ``apply`` runs the encoder again, as in ``repro``.
+slot's ``len`` is reset to the true prompt length, and the first token is
+the argmax of prefill's own logits at the true last position (``last``):
+causal attention keeps the padding after it out of that row, so it is the
+row ``repro``'s engine takes from a second, full ``apply``.  Junk cache
+rows beyond the true length are overwritten by the decode writes before
+the causal mask can ever expose them (attention families).  SSM and
+hybrid caches carry recurrent state, so those families prefill the exact
+prompt (bucket 1).  The vlm family prefills its prompt after a zero
+frontend of ``num_frontend_tokens`` patch embeddings, which count in
+``len``.  The encdec family gets a zero frontend of
+``num_frontend_tokens`` frames too, but as a separate encoder sequence:
+``len`` counts the prompt only, and the encoder runs once, inside
+``prefill``.
 
-On the card every admission runs the flash kernel twice in each
-attention layer: in ``prefill`` and in the first-token ``apply`` (for
-encdec, in each encoder layer and in each decoder layer's self- and
-cross-attention); an encdec decode step runs it once in each decoder
-layer, for the cross-attention.  The
-engine keeps the host-clock seconds of its admissions (``prefill_s``: the
-prefill, the first-token ``apply`` and the splice together) and decode
-steps (``decode_s``); both end in a device-to-host read of the chosen
-tokens, so they include the device's work.
+On the card every admission runs the flash kernel once in each attention
+layer, in ``prefill`` (for encdec, in each encoder layer and in each
+decoder layer's self- and cross-attention), and the float32 head over
+one row.  An encdec decode step runs the flash kernel once in each
+decoder layer, for the cross-attention.  The engine keeps the host-clock seconds of its
+admissions (``prefill_s``: the prefill, the first-token read and the
+splice together) and decode steps (``decode_s``); both end in a
+device-to-host read of the chosen tokens, so they include the device's
+work.
 
 Given a ``core.obs`` ``Tracer`` (``tracer=``), each ``step`` records
 program spans on it (``core/obs/trace.py``): ``serve.queue`` (a request's
 wait from ``submit`` to the start of its admission), ``serve.admit``
 with its children ``serve.prefill`` (``api.prefill`` and ``pad_cache``),
-``serve.first_token`` (the ``apply`` and the argmax read; ``positions``
-is the logit rows it computes for the one it keeps; its forward's
-``model.attention`` spans lie below it) and
+``serve.first_token`` (the argmax read of prefill's logits;
+``positions`` is the logit rows the admission computes, 1) and
 ``serve.splice``, all under the request's ``rid``, and ``serve.decode``
 (``live``: the slots in use).  The spans' device seconds are resolved
 at the end of each step, after the step's last device-to-host read.
@@ -136,17 +138,15 @@ class ServingEngine:
             frontend = torch.zeros(
                 (1, self.cfg.num_frontend_tokens, self.cfg.d_model),
                 dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        last = torch.full((1,), true_len - 1, dtype=torch.int64,
+                          device=self.device)
         with span("serve.prefill"):
-            cache1, _ = api.prefill(self.cfg, self.params, tokens, frontend)
+            cache1, logits = api.prefill(self.cfg, self.params, tokens,
+                                         frontend, last)
             cache1 = api.pad_cache(self.cfg, cache1, self.max_len)
         self.prefills += 1
-        # first-token logits at the true last prompt position
-        batch = {"tokens": tokens}
-        if frontend is not None:
-            batch["frontend"] = frontend
-        with span("serve.first_token", positions=blen):
-            logits, _ = api.apply(self.cfg, self.params, batch)
-            first = int(torch.argmax(logits[0, true_len - 1]))
+        with span("serve.first_token", positions=1):
+            first = int(torch.argmax(logits[0]))
         nf = (self.cfg.num_frontend_tokens
               if self.cfg.family == "vlm" else 0)
 

@@ -112,7 +112,7 @@ def test_serving_spans_share_a_request_id_and_the_queue_meets_admission():
     by_rid = collections.defaultdict(dict)
     attn = collections.Counter()
     for s in spans:
-        if s["name"] == "model.attention":   # the first-token forward's
+        if s["name"] == "model.attention":   # a forward's, by parent
             attn[s["parent"]] += 1
         elif "rid" in s:
             by_rid[s["rid"]][s["name"]] = s
@@ -124,11 +124,11 @@ def test_serving_spans_share_a_request_id_and_the_queue_meets_admission():
         admit = got["serve.admit"]
         for child in ("serve.prefill", "serve.first_token", "serve.splice"):
             assert got[child]["parent"] == admit["id"]
-        assert attn[got["serve.first_token"]["id"]] == cfg.num_layers
+        # the first token is prefill's: an argmax read, no second forward
+        assert attn[got["serve.first_token"]["id"]] == 0
         q = got["serve.queue"]
         assert q["t0"] + q["dur"] == admit["t0"]
-        assert got["serve.first_token"]["positions"] == \
-            -(-len(r.prompt) // 16) * 16
+        assert got["serve.first_token"]["positions"] == 1
     # the third request waited for a slot: a step's decode and more
     assert by_rid[reqs[2].rid]["serve.queue"]["dur"] > \
         by_rid[reqs[0].rid]["serve.queue"]["dur"]
